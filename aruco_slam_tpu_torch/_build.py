@@ -1,11 +1,12 @@
 """Build the CUDA kernels with nvcc and bind them with ctypes.
 
 Every ``csrc/*.cu`` file has a plain C interface (no PyTorch headers,
-so nvcc takes seconds, not minutes). They compile together into one
-shared library under ``build/`` at the repository root, named by a hash
-of the sources and flags: an edited source builds a new library, an
-unchanged one is loaded as it is. The build happens at the first kernel
-call, never at import (the CPU-only test host has no nvcc).
+so nvcc takes seconds, not minutes). Each compiles to an object file in
+its own nvcc process, all started together, and the objects link into
+one shared library under ``build/`` at the repository root, named by a
+hash of the sources and flags: an edited source builds a new library,
+an unchanged one is loaded as it is. The build happens at the first
+kernel call, never at import (the CPU-only test host has no nvcc).
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; `call` raises on anything but 0, so a launch
@@ -29,8 +30,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 # seconds the last nvcc build took in this process (0.0 = the library
 # was already built and only loaded)
@@ -63,27 +64,45 @@ def library_path() -> Path:
     return BUILD / f"libaruco_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with the output of each that
+    failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
 def build() -> Path:
     """Compile the kernels if this source hash has no library yet.
-    Processes building at once each write a private temp file and
-    rename it into place, so none loads a half-written library."""
+    Processes building at once each work in a private temp directory
+    and rename the library into place, so none loads a half-written
+    one."""
     global last_build_seconds
     out = library_path()
     if out.exists():
         return out
     BUILD.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    last_build_seconds = time.perf_counter() - t0
+    tmp = Path(tempfile.mkdtemp(dir=BUILD))
+    try:
+        nvcc = _nvcc()
+        srcs = sorted(CSRC.glob("*.cu"))
+        objs = [tmp / f"{src.stem}.o" for src in srcs]
+        t0 = time.perf_counter()
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(srcs, objs)])
+        _run([[nvcc, *ARCH, "-shared", "-o", str(tmp / out.name),
+               *map(str, objs)]])
+        os.replace(tmp / out.name, out)
+        last_build_seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 

@@ -11,11 +11,13 @@ TUM trajectory + map files in the JAX run_slam's formats.
 npz input may carry `images`, `corners` or pose-level `t_cl` bundles;
 video input is decoded by the JAX package's JAX-free `VideoSource`.
 
-``--platform cuda`` is the default and raises when no card is
-present; the run never moves to the CPU in its place. Flags of the JAX
-run_slam that select paths not ported yet (the factor graph, streaming
-tracking, multi-stream serving, viewers, checkpoints, map preloading,
-slot recycling) are accepted and refused with a "not ported yet" error.
+``--track-every K`` runs the streaming front end instead of full
+detection on every frame (`ops.detect.streaming_step`). ``--platform
+cuda`` is the default and raises when no card is present; the run never
+moves to the CPU in its place. Flags of the JAX run_slam that select
+paths not ported yet (the factor graph, rotation landmarks, multi-stream
+serving, viewers, checkpoints, map preloading, slot recycling) are
+accepted and refused with a "not ported yet" error.
 """
 
 from __future__ import annotations
@@ -71,13 +73,22 @@ def _camera(k, d, device) -> cam_mod.CameraModel:
 
 def _observations_from_frames(frame_iter, cam, cfg: SlamAppConfig,
                               device: torch.device, chunk: int = 32):
-    """Image front end over a (timestamp, gray) iterator: batched
-    detection + PnP in fixed-size chunks (the tail chunk zero-padded),
-    slots claimed first-seen through the id->slot table. Returns the
-    loader tuple (times, t_cl, q_cl, mask, cam, ambiguity, slot_ids,
-    reset, ids_seq) as numpy arrays."""
-    if cfg.track_every:
-        _not_ported("--track-every (streaming tracker)")
+    """Image front end over a (timestamp, gray) iterator: detection +
+    batched PnP in fixed-size chunks, slots claimed first-seen through
+    the id->slot table. Full detection runs each chunk as one batch
+    (the tail chunk zero-padded). With ``cfg.track_every`` K the chunk
+    runs frame by frame through `detect.streaming_step` (full sweep on
+    2 of every K frames, validated tracking in between), whose carry
+    (corners, mask, velocity, table, frame index) crosses the chunks;
+    its tail chunk is not padded, since a zero frame would change
+    neither the table nor any real frame's output. Returns the loader
+    tuple (times, t_cl, q_cl, mask, cam, ambiguity, slot_ids, reset,
+    ids_seq) as numpy arrays."""
+    ke = cfg.track_every
+    if ke and cfg.slot_max_age:
+        raise ValueError("--slot-max-age with --track-every is not "
+                         "supported yet: the streaming carry does not "
+                         "thread the LRU table")
     if cfg.slot_max_age:
         _not_ported("--slot-max-age (LRU slot recycling)")
     dcfg = detect.with_preset(
@@ -89,17 +100,29 @@ def _observations_from_frames(frame_iter, cam, cfg: SlamAppConfig,
     table = detect.slot_table_init(dcfg.capacity, device)
     seen = torch.zeros(dcfg.capacity, dtype=torch.int32, device=device)
     fidx = 0
+    step = detect.streaming_step(dcfg, ke, mapped=True) if ke else None
+    carry = detect.streaming_init(dcfg, mapped=True, device=device)
 
     def flush():
-        nonlocal table, seen, fidx
+        nonlocal table, seen, fidx, carry
         n = len(buf)
         if not n:
             return
-        if n < chunk:
-            buf.extend([np.zeros_like(buf[0])] * (chunk - n))
-        ims = torch.from_numpy(np.stack(buf)).to(device)
-        det_c, det_m, _reset, _ids, table, seen, dropped = \
-            detect.detect_markers_batch_lru(ims, dcfg, table, seen, fidx)
+        if ke:
+            per_frame = []
+            for im in torch.from_numpy(np.stack(buf)).to(device):
+                carry, out = step(carry, im)
+                per_frame.append(out)
+            det_c, det_m = (torch.stack(x) for x in zip(*per_frame))
+            table = carry[3]
+            dropped = torch.zeros(n, dtype=torch.int32, device=device)
+        else:
+            if n < chunk:
+                buf.extend([np.zeros_like(buf[0])] * (chunk - n))
+            ims = torch.from_numpy(np.stack(buf)).to(device)
+            det_c, det_m, _reset, _ids, table, seen, dropped = \
+                detect.detect_markers_batch_lru(ims, dcfg, table, seen,
+                                                fidx)
         fidx += n
         res = pnp.solve_square_pnp(cam, det_c, cfg.marker_size)
         mask = det_m & (res.err < cfg.max_reproj_px)
@@ -242,8 +265,11 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--gate-distance", type=float,
                    default=dflt.gate_distance)
     p.add_argument("--max-obs", type=int, default=dflt.max_obs)
+    p.add_argument("--track-every", type=int, default=0, metavar="K",
+                   help="streaming detection: full sweep on 2 of every K "
+                        "frames, decode-validated tracking in between "
+                        "(K >= 3; 0 = full detection every frame)")
     # the JAX run_slam's other paths: accepted, refused below
-    p.add_argument("--track-every", type=int, default=0)
     p.add_argument("--slot-max-age", type=int, default=0)
     p.add_argument("--viz-2d", action="store_true")
     p.add_argument("--viz-3d", action="store_true")
@@ -255,7 +281,11 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> RunResult:
-    args = _parser().parse_args(argv)
+    parser = _parser()
+    args = parser.parse_args(argv)
+    if args.track_every and args.track_every < 3:
+        parser.error("--track-every needs K >= 3 (2 full frames bootstrap "
+                     "the velocity prior)")
     if args.filter != "mekf":
         _not_ported(f"--filter {args.filter}")
     if "," in args.input:

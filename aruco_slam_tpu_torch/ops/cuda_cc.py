@@ -1,16 +1,21 @@
-"""Connected-component labeling: the CUDA kernel and its plain version.
+"""Connected-component labeling: the CUDA kernels and their plain versions.
 
-Counterpart of aruco_slam_tpu/ops/pallas_cc.py `flood_scan_labels`:
-the whole `_connected_components` schedule of the detector (opening
-3x3 min-stencil block, then `scan_rounds` alternations of segmented
-row/column min-scans and stencil blocks). The kernel is
-``csrc/flood_scan.cu``; `flood_scan_labels_plain` is the same schedule
-in PyTorch, written after the reference's XLA path (ops/detect.py), and
-is what a CPU tensor runs.
+Counterparts of aruco_slam_tpu/ops/pallas_cc.py:
 
-Output is bit-identical between the two and to the JAX package: labels
-are integers and every step is a min. Background is ``h*w``; the
-outermost 1-px ring is background in every path.
+- `flood_scan_labels` (``csrc/flood_scan.cu``): the whole
+  `_connected_components` schedule of the detector (opening 3x3
+  min-stencil block, then `scan_rounds` alternations of segmented
+  row/column min-scans and stencil blocks);
+- `flood_labels` (``csrc/flood.cu``): ``iters`` stencil rounds alone,
+  the schedule when ``scan_rounds == 0``.
+
+`flood_scan_labels_plain` and `flood_labels_plain` are the same
+schedules in PyTorch, written after the reference's XLA path
+(ops/detect.py), and are what a CPU tensor runs.
+
+Output is bit-identical between each kernel, its plain version and the
+JAX package: labels are integers and every step is a min. Background is
+``h*w``; the outermost 1-px ring is background in every path.
 """
 
 from __future__ import annotations
@@ -31,6 +36,39 @@ def _clear_border(fg: torch.Tensor) -> torch.Tensor:
     return fg
 
 
+def _seed(fg: torch.Tensor) -> torch.Tensor:
+    """Border-cleared (B, h, w) bool -> seed labels (flat index per
+    foreground pixel, background h*w)."""
+    _, h, w = fg.shape
+    lin = torch.arange(h * w, dtype=torch.int32,
+                       device=fg.device).reshape(h, w)
+    return torch.where(fg, lin, h * w)
+
+
+def _prop(fg: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """One stencil round: the separable 3x3 min (vertical, then
+    horizontal) with big-valued padding, background kept at h*w."""
+    _, h, w = fg.shape
+    big = h * w
+    p = torch.full_like(labels[:, :1, :], big)
+    p = torch.cat([p, labels, p], dim=1)
+    v = torch.minimum(labels, torch.minimum(p[:, :-2], p[:, 2:]))
+    q = torch.full_like(v[:, :, :1], big)
+    q = torch.cat([q, v, q], dim=2)
+    m = torch.minimum(v, torch.minimum(q[:, :, :-2], q[:, :, 2:]))
+    return torch.where(fg, m, big)
+
+
+def flood_labels_plain(fg: torch.Tensor, iters: int) -> torch.Tensor:
+    """(B, h, w) bool -> (B, h, w) int32 labels after ``iters`` stencil
+    rounds, in PyTorch ops."""
+    fg = _clear_border(fg.bool())
+    labels = _seed(fg)
+    for _ in range(iters):
+        labels = _prop(fg, labels)
+    return labels
+
+
 def flood_scan_labels_plain(fg: torch.Tensor, iters: int,
                             scan_rounds: int) -> torch.Tensor:
     """(B, h, w) bool -> (B, h, w) int32 labels, in PyTorch ops.
@@ -42,19 +80,10 @@ def flood_scan_labels_plain(fg: torch.Tensor, iters: int,
     _, h, w = fg.shape
     big = h * w
     fg = _clear_border(fg.bool())
-    lin = torch.arange(big, dtype=torch.int32,
-                       device=fg.device).reshape(h, w)
-    big_t = torch.tensor(big, dtype=torch.int32, device=fg.device)
-    labels = torch.where(fg, lin, big_t)
+    labels = _seed(fg)
 
     def prop(labels):
-        p = torch.full_like(labels[:, :1, :], big)
-        p = torch.cat([p, labels, p], dim=1)
-        v = torch.minimum(labels, torch.minimum(p[:, :-2], p[:, 2:]))
-        q = torch.full_like(v[:, :, :1], big)
-        q = torch.cat([q, v, q], dim=2)
-        m = torch.minimum(v, torch.minimum(q[:, :, :-2], q[:, :, 2:]))
-        return torch.where(fg, m, big_t)
+        return _prop(fg, labels)
 
     maxl = (1 << 31) - 1
     reset = (~fg).to(torch.int64)
@@ -83,22 +112,70 @@ def flood_scan_labels_plain(fg: torch.Tensor, iters: int,
     return labels
 
 
+def _batched(fg: torch.Tensor, run) -> torch.Tensor:
+    """Apply ``run`` to a (B, h, w) view of a (h, w) or (B, h, w) mask."""
+    squeeze = fg.dim() == 2
+    fg3 = fg[None] if squeeze else fg
+    if fg3.dim() != 3:
+        raise ValueError(f"fg: expected (h, w) or (B, h, w), got "
+                         f"{tuple(fg.shape)}")
+    out = run(fg3)
+    return out[0] if squeeze else out
+
+
+def _mask_u8(fg: torch.Tensor, name: str) -> torch.Tensor:
+    fg_u8 = (fg != 0).to(torch.uint8).contiguous()
+    _build.check_cuda("fg", fg_u8, torch.uint8, 3)
+    _, h, w = fg_u8.shape
+    if h < 3 or w < 3 or h * w >= 2 ** 31:
+        raise ValueError(f"{name}: unsupported grid {h}x{w}")
+    return fg_u8
+
+
+def flood_labels(fg: torch.Tensor, iters: int) -> torch.Tensor:
+    """Labels after ``iters`` stencil rounds of a (h, w) or (B, h, w)
+    bool/uint8 mask (its 1-px ring is cleared here).
+
+    A CUDA tensor launches ``csrc/flood.cu``; a CPU tensor runs
+    `flood_labels_plain`."""
+    def run(f):
+        if f.device.type == "cpu":
+            return flood_labels_plain(f, iters)
+        return _launch_flood(f, iters)
+    return _batched(fg, run)
+
+
+flood_labels.launches = 0
+
+
+def _launch_flood(fg: torch.Tensor, iters: int) -> torch.Tensor:
+    if iters < 0:
+        raise ValueError(f"flood_labels: iters {iters} < 0")
+    cleared = _clear_border(_mask_u8(fg, "flood_labels"))
+    labels = torch.empty(cleared.shape, dtype=torch.int32,
+                         device=fg.device)
+    scratch = torch.empty_like(labels)
+    b, h, w = cleared.shape
+    fn = _build.function("flood_labels", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    _build.call(fn, _build.ptr(cleared), _build.ptr(labels),
+                _build.ptr(scratch), b, h, w, iters, _build.stream())
+    flood_labels.launches += 1
+    return labels
+
+
 def flood_scan_labels(fg: torch.Tensor, iters: int,
                       scan_rounds: int) -> torch.Tensor:
     """Component labels of a (h, w) or (B, h, w) bool/uint8 mask.
 
     A CUDA tensor launches ``csrc/flood_scan.cu``; a CPU tensor runs
     `flood_scan_labels_plain`."""
-    squeeze = fg.dim() == 2
-    fg3 = fg[None] if squeeze else fg
-    if fg3.dim() != 3:
-        raise ValueError(f"fg: expected (h, w) or (B, h, w), got "
-                         f"{tuple(fg.shape)}")
-    if fg3.device.type == "cpu":
-        out = flood_scan_labels_plain(fg3, iters, scan_rounds)
-    else:
-        out = _launch(fg3, iters, scan_rounds)
-    return out[0] if squeeze else out
+    def run(f):
+        if f.device.type == "cpu":
+            return flood_scan_labels_plain(f, iters, scan_rounds)
+        return _launch(f, iters, scan_rounds)
+    return _batched(fg, run)
 
 
 flood_scan_labels.launches = 0
@@ -106,11 +183,8 @@ flood_scan_labels.launches = 0
 
 def _launch(fg: torch.Tensor, iters: int, scan_rounds: int
             ) -> torch.Tensor:
-    fg_u8 = (fg != 0).to(torch.uint8).contiguous()
-    _build.check_cuda("fg", fg_u8, torch.uint8, 3)
+    fg_u8 = _mask_u8(fg, "flood_scan_labels")
     b, h, w = fg_u8.shape
-    if h < 3 or w < 3 or h * w >= 2 ** 31:
-        raise ValueError(f"flood_scan_labels: unsupported grid {h}x{w}")
     cleared = torch.empty_like(fg_u8)
     labels = torch.empty((b, h, w), dtype=torch.int32, device=fg.device)
     scratch = torch.empty_like(labels)

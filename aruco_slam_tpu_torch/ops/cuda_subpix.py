@@ -1,14 +1,20 @@
-"""Subpixel corner refinement: the CUDA kernel and its plain version.
+"""Subpixel corner refinement: the CUDA kernels and their plain versions.
 
-Counterpart of aruco_slam_tpu/ops/pallas_subpix.py
-`refine_corners_fused` (the fused gather + gradients + cornerSubPix
-fixed point). The kernel is ``csrc/subpix.cu``;
-`refine_corners_plain` is the reference's XLA path of
-ops/detect.py `_subpix_refine` in PyTorch (patch gather, interior
-gradients, the coarse-to-fine loop), and is what a CPU tensor runs.
-The two sum in different orders: they agree to float reassociation
-noise (the detector tests hold them to 2e-3 px, the bound the JAX
-package holds its own two backends to).
+Counterparts of aruco_slam_tpu/ops/pallas_subpix.py, whose two kernels
+share one iteration loop (`_iterate`):
+
+- `refine_corners` <- `refine_corners_fused` (the fused gather +
+  gradients + cornerSubPix fixed point);
+- `refine_offsets` <- `refine_offsets` (the same fixed point on
+  patches the caller gathered, from offsets to the patch centre).
+
+Both kernels are in ``csrc/subpix.cu`` and share its device loop. The
+plain versions are the reference's XLA path of ops/detect.py
+`_subpix_refine` in PyTorch: `refine_corners_plain` is `gather_patches`
+followed by `refine_offsets_plain`, whose loop serves both, and is what
+a CPU tensor runs. Kernel and plain version sum in different orders:
+they agree to float reassociation noise (the detector tests hold them
+to 2e-3 px, the bound the JAX package holds its own two backends to).
 """
 
 from __future__ import annotations
@@ -39,40 +45,48 @@ def schedule_params(schedule: tuple[tuple[int, int], ...]):
     return rad, tuple(sched)
 
 
-def _centers(corners: torch.Tensor, rad: int, h: int, w: int):
+def gather_patches(image: torch.Tensor, corners: torch.Tensor, rad: int):
+    """(B, H, W) frames + (B, N, 2) pixel corners -> ((B, N, p, p) f32
+    patches centred at the rounded corners clipped into the frame
+    (p = 2 rad + 1), cx0 (B, N), cy0 (B, N) int32 centres), as
+    ops/detect.py `_gather_patches`."""
+    b, h, w = image.shape
+    p = 2 * rad + 1
     cx0 = torch.clamp(torch.round(corners[..., 0]).to(torch.int32),
                       rad, w - rad - 1)
     cy0 = torch.clamp(torch.round(corners[..., 1]).to(torch.int32),
                       rad, h - rad - 1)
-    return cx0, cy0
-
-
-def refine_corners_plain(image: torch.Tensor, corners: torch.Tensor,
-                         schedule: tuple[tuple[int, int], ...]
-                         ) -> torch.Tensor:
-    """(B, H, W) image + (B, N, 2) f32 corners -> (B, N, 2)."""
-    b, h, w = image.shape
-    rad, sched = schedule_params(schedule)
-    p = 2 * rad + 1
-    corners = corners.to(torch.float32)
-    cx0, cy0 = _centers(corners, rad, h, w)
     ar = torch.arange(p, device=image.device)
     rows = (cy0.long() - rad)[..., None] + ar                 # (B, N, p)
     cols = (cx0.long() - rad)[..., None] + ar
     bi = torch.arange(b, device=image.device)[:, None, None, None]
-    patches = image[bi, rows[..., :, None], cols[..., None, :]
-                    ].to(torch.float32)                        # (B,N,p,p)
-    c = torch.stack([corners[..., 0] - cx0, corners[..., 1] - cy0], -1)
-    c = torch.clamp(c, -(rad - 1), rad - 1)
+    patches = image[bi, rows[..., :, None], cols[..., None, :]]
+    return patches.to(torch.float32), cx0, cy0
 
+
+def start_offsets(corners: torch.Tensor, cx0: torch.Tensor,
+                  cy0: torch.Tensor, rad: int) -> torch.Tensor:
+    """Corner offsets from the patch centres, clipped so the first
+    window stays inside the patch."""
+    c = torch.stack([corners[..., 0] - cx0, corners[..., 1] - cy0], -1)
+    return torch.clamp(c, -(rad - 1), rad - 1)
+
+
+def refine_offsets_plain(patches: torch.Tensor, c0: torch.Tensor,
+                         schedule: tuple[tuple[int, int], ...]
+                         ) -> torch.Tensor:
+    """(..., p, p) f32 patches + (..., 2) start offsets from the patch
+    centre -> refined (..., 2) offsets, in PyTorch ops."""
+    _, sched = schedule_params(schedule)
+    patches = patches.to(torch.float32)
     gx = 0.5 * (patches[..., 1:-1, 2:] - patches[..., 1:-1, :-2])
     gy = 0.5 * (patches[..., 2:, 1:-1] - patches[..., :-2, 1:-1])
-    q = 2 * rad - 1
-    iq = torch.arange(q, dtype=torch.float32, device=image.device)
+    q = patches.shape[-1] - 2
+    iq = torch.arange(q, dtype=torch.float32, device=patches.device)
     px = (iq - (q - 1) / 2.0)[None, :].expand(q, q)
     py = (iq - (q - 1) / 2.0)[:, None].expand(q, q)
     proj = gx * px + gy * py
-
+    c = c0.to(torch.float32)
     for half, iters, sigma2, drift in sched:
         for _ in range(iters):
             cx, cy = c[..., 0], c[..., 1]
@@ -97,7 +111,31 @@ def refine_corners_plain(image: torch.Tensor, corners: torch.Tensor,
             ny = torch.minimum(torch.maximum(ny, cy - half), cy + half)
             c = torch.stack([torch.clamp(nx, -drift, drift),
                              torch.clamp(ny, -drift, drift)], -1)
+    return c
+
+
+def refine_via_patches(image: torch.Tensor, corners: torch.Tensor,
+                       schedule: tuple[tuple[int, int], ...], refine
+                       ) -> torch.Tensor:
+    """(B, H, W) image + (B, N, 2) corners -> (B, N, 2): gather the
+    patches, run ``refine`` (`refine_offsets` or `refine_offsets_plain`)
+    on the (B*N, p, p) stack, add the centres back."""
+    rad, _ = schedule_params(schedule)
+    corners = corners.to(torch.float32)
+    patches, cx0, cy0 = gather_patches(image, corners, rad)
+    c0 = start_offsets(corners, cx0, cy0, rad)
+    b, n, p = patches.shape[:3]
+    c = refine(patches.reshape(b * n, p, p), c0.reshape(b * n, 2),
+               schedule).reshape(b, n, 2)
     return c + torch.stack([cx0, cy0], -1).to(torch.float32)
+
+
+def refine_corners_plain(image: torch.Tensor, corners: torch.Tensor,
+                         schedule: tuple[tuple[int, int], ...]
+                         ) -> torch.Tensor:
+    """(B, H, W) image + (B, N, 2) f32 corners -> (B, N, 2)."""
+    return refine_via_patches(image, corners, schedule,
+                              refine_offsets_plain)
 
 
 def refine_corners(image: torch.Tensor, corners: torch.Tensor,
@@ -116,6 +154,21 @@ def refine_corners(image: torch.Tensor, corners: torch.Tensor,
 
 
 refine_corners.launches = 0
+
+
+# half, iters, sigma2, drift arrays and the stage count
+_SCHEDULE_ARGTYPES = [
+    ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+    ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
+    ctypes.c_int]
+
+
+def _schedule_args(sched):
+    k = len(sched)
+    return ((ctypes.c_int * k)(*(s[0] for s in sched)),
+            (ctypes.c_int * k)(*(s[1] for s in sched)),
+            (ctypes.c_float * k)(*(s[2] for s in sched)),
+            (ctypes.c_float * k)(*(float(s[3]) for s in sched)), k)
 
 
 def _launch(image, corners, schedule):
@@ -142,19 +195,52 @@ def _launch(image, corners, schedule):
                          "devices")
     out = torch.empty_like(corners)
     n = corners.shape[1]
-    k = len(sched)
-    half = (ctypes.c_int * k)(*(s[0] for s in sched))
-    iters = (ctypes.c_int * k)(*(s[1] for s in sched))
-    sigma2 = (ctypes.c_float * k)(*(s[2] for s in sched))
-    drift = (ctypes.c_float * k)(*(float(s[3]) for s in sched))
     fn = _build.function(entry, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
-        ctypes.c_int, ctypes.c_void_p])
+        *_SCHEDULE_ARGTYPES, ctypes.c_void_p])
     _build.call(fn, _build.ptr(image), _build.ptr(corners),
-                _build.ptr(out), b, n, h, w, rad, half, iters, sigma2,
-                drift, k, _build.stream())
+                _build.ptr(out), b, n, h, w, rad, *_schedule_args(sched),
+                _build.stream())
     refine_corners.launches += 1
     return out
+
+
+def refine_offsets(patches: torch.Tensor, c0: torch.Tensor,
+                   schedule: tuple[tuple[int, int], ...]) -> torch.Tensor:
+    """Run the refinement ``schedule`` ((half, iters) stages) on (N, p, p)
+    f32 patches with p = 2 rad + 1 (rad as `schedule_params` derives
+    it) from start offsets c0 (N, 2) relative to the patch centre;
+    returns the refined (N, 2) offsets.
+
+    A CUDA tensor launches ``csrc/subpix.cu``'s patch-fed kernel; a CPU
+    tensor runs `refine_offsets_plain`."""
+    rad, sched = schedule_params(schedule)
+    p = 2 * rad + 1
+    n = patches.shape[0]
+    if patches.shape != (n, p, p) or c0.shape != (n, 2):
+        raise ValueError(f"refine_offsets: patches {tuple(patches.shape)}"
+                         f", c0 {tuple(c0.shape)}; the schedule needs "
+                         f"({p}, {p}) patches")
+    if patches.device.type == "cpu":
+        return refine_offsets_plain(patches, c0, schedule)
+    if len(sched) > 4:
+        raise ValueError("refine_offsets: at most 4 schedule stages")
+    patches = patches.contiguous()
+    c0 = c0.contiguous()
+    _build.check_cuda("patches", patches, torch.float32, 3)
+    _build.check_cuda("c0", c0, torch.float32, 2)
+    if c0.device != patches.device:
+        raise ValueError("refine_offsets: patches and c0 on different "
+                         "devices")
+    out = torch.empty_like(c0)
+    fn = _build.function("subpix_offsets", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, *_SCHEDULE_ARGTYPES, ctypes.c_void_p])
+    _build.call(fn, _build.ptr(patches), _build.ptr(c0), _build.ptr(out),
+                n, rad, *_schedule_args(sched), _build.stream())
+    refine_offsets.launches += 1
+    return out
+
+
+refine_offsets.launches = 0

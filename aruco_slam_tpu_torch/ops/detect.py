@@ -5,8 +5,9 @@ names of `candidate_stage_names`):
 
  1. adaptive threshold fused with each pass's downscale — min/avg
     pools against a local box mean (``rawpools``, ``pools``);
- 2. connected components on the label grid — `cuda_cc.flood_scan_labels`
-    (``flood``);
+ 2. connected components on the label grid — `cuda_cc.flood_scan_labels`,
+    or `cuda_cc.flood_labels` for the stencil-only schedule
+    (``scan_rounds == 0``) (``flood``);
  3. per-component areas from a sort + run-length scan, area-gated
     top-K (``sort``);
  4. quad corners from the component's own pixel list (``harvest``);
@@ -24,8 +25,16 @@ argmax takes the first maximum. The harvest sort is stable here and
 unstable there; within a component the order of its pixels only moves
 distance ties in the quad extraction.
 
-Not ported yet: the streaming tracker (`track_markers` and the
-detect-or-track family) and LRU slot recycling (``slot_max_age > 0``).
+The single-stream streaming tracker follows: `track_markers` (three
+subpixel pulls, a median consensus and a payload re-decode per live
+slot), `detect_or_track[_mapped]` and `streaming_step`, which runs the
+detect-every-K schedule frame by frame. Where JAX picks the branch with
+`lax.cond`, the port tests the predicate on the host (one device sync
+per frame) and runs only the branch taken.
+
+Not ported yet: LRU slot recycling (``slot_max_age > 0``) and the fleet
+streaming forms (``streams=``, `detect_or_track_batch*`, rescue
+cohorts).
 """
 
 from __future__ import annotations
@@ -141,7 +150,12 @@ def _pool(x: torch.Tensor, f: int):
 
 def _connected_components(fg: torch.Tensor, iters: int,
                           scan_rounds: int = 3) -> torch.Tensor:
-    """(B, h, w) bool -> int32 labels, background h*w."""
+    """(B, h, w) bool -> int32 labels, background h*w. With
+    ``scan_rounds == 0`` the schedule is ``iters`` stencil rounds alone
+    (`cuda_cc.flood_labels`); otherwise stencil blocks alternate with
+    segmented scans (`cuda_cc.flood_scan_labels`)."""
+    if scan_rounds == 0:
+        return cuda_cc.flood_labels(fg, iters)
     return cuda_cc.flood_scan_labels(fg, iters, scan_rounds)
 
 
@@ -520,6 +534,26 @@ def _assign_slots_impl(table_ids, canon, cand_ids, decoded, top_score,
     return slot_c, slot_mask, table_ids, evicted, dropped
 
 
+def assign_slots(table_ids, canon, cand_ids, decoded, top_score):
+    """Step 7 with an id->slot table for one frame: known ids land in
+    their slot, unseen ids claim free slots first-seen. Returns (corners
+    (C, 4, 2), mask (C,), table_ids (C,))."""
+    return _assign_slots_impl(table_ids, canon, cand_ids, decoded,
+                              top_score)[:3]
+
+
+def detect_markers_mapped(image: torch.Tensor, cfg: DetectorConfig,
+                          table_ids: torch.Tensor):
+    """`detect_markers` of one (H, W) frame with the id->slot table
+    layout. Returns (Detections, updated table_ids)."""
+    canon, cand_ids, decoded, top_score = (
+        x[0] for x in _detect_candidates(image[None], cfg))
+    slot_c, slot_mask, table_ids = assign_slots(
+        table_ids, canon, cand_ids, decoded, top_score)
+    return Detections(corners=slot_c, mask=slot_mask, cand_corners=canon,
+                      cand_ids=cand_ids, cand_valid=decoded), table_ids
+
+
 def assign_slots_lru(table_ids, last_seen, frame_idx, max_age: int,
                      canon, cand_ids, decoded, top_score):
     """Slot assignment with saturation accounting. Returns (corners
@@ -564,3 +598,188 @@ def detect_markers_batch_lru(images: torch.Tensor, cfg: DetectorConfig,
     last_seen, dropped (T,))."""
     return assign_sequence_lru(cfg, table_ids, last_seen, frame0,
                                *detect_candidates_batch(images, cfg))
+
+
+def _median(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """`jnp.median` along ``dim`` (kept): the mean of the two middle
+    values for an even count. (`torch.median` returns the lower one.)"""
+    s = torch.sort(x, dim=dim).values
+    n = x.shape[dim]
+    lo = s.narrow(dim, (n - 1) // 2, 1)
+    hi = s.narrow(dim, n // 2, 1)
+    return (lo + hi) * 0.5
+
+
+def track_velocity(new_c: torch.Tensor, new_m: torch.Tensor,
+                   old_c: torch.Tensor, old_m: torch.Tensor
+                   ) -> torch.Tensor:
+    """Per-marker translation prior: the median corner displacement
+    (C, 1, 2) broadcast over the corners, zero for slots not alive in
+    both frames."""
+    med = _median(new_c - old_c, 1)
+    return torch.where((new_m & old_m)[:, None, None],
+                       med.expand_as(new_c), 0.0)
+
+
+def refine_corners(image: torch.Tensor, corners: torch.Tensor,
+                   half: int = 5, iters: int = 8) -> torch.Tensor:
+    """Subpixel refinement of point features (cv2.cornerSubPix's math):
+    an (H, W) frame with (N, 2) corners -> (N, 2), or a (B, H, W) batch
+    with (B, N, 2). Like the JAX function on every backend, it gathers
+    the patches, runs the one-stage schedule on them
+    (`cuda_subpix.refine_offsets`) and adds the centres back."""
+    single = image.dim() == 2
+    out = cuda_subpix.refine_via_patches(
+        image[None] if single else image,
+        corners[None] if single else corners, ((half, iters),),
+        cuda_subpix.refine_offsets)
+    return out[0] if single else out
+
+
+def track_markers(image: torch.Tensor, corners: torch.Tensor,
+                  mask: torch.Tensor, cfg: DetectorConfig,
+                  velocity: torch.Tensor | None = None,
+                  slot_ids: torch.Tensor | None = None):
+    """Track the previous frame's slot corners (C, 4, 2) with live mask
+    (C,) into the (H, W) frame ``image``: the search starts at corners +
+    velocity, and a slot survives only if its re-decoded payload still
+    spells its own id (``slot_ids`` (C,), -1 = free; None = slot index
+    is the id). At most ``cfg.track_slots`` live slots are tracked (the
+    lowest indices first); the rest drop until the next full sweep.
+    Returns this frame's (corners (C, 4, 2), mask (C,))."""
+    d = dict_mod.load(cfg.dict_name)
+    c = corners.shape[0]
+    dev = corners.device
+    if velocity is None:
+        velocity = torch.zeros_like(corners)
+    if slot_ids is None:
+        slot_ids = torch.arange(c, device=dev)
+    ts = min(cfg.track_slots, c) if cfg.track_slots else c
+    if ts < c:
+        _, idx = _top_k_low_index(mask.to(torch.int32), ts)
+        rc, ok = _track_core(image, corners[idx], mask[idx], velocity[idx],
+                             cfg, d, slot_ids[idx])
+        return (corners.index_copy(0, idx, rc),
+                torch.zeros(c, dtype=torch.bool, device=dev
+                            ).index_copy(0, idx, ok))
+    return _track_core(image, corners, mask, velocity, cfg, d, slot_ids)
+
+
+def _track_core(image, corners, mask, velocity, cfg: DetectorConfig, d,
+                slot_ids):
+    """Tracking on a (possibly compacted) slot set of S rows: two
+    median-consensus pulls (windows track_win, then 6), a tight polish
+    ((3, 4), (2, 2)) whose corners snap back to the consensus quad when
+    they stray over 1.25 px, then the payload re-decode and the in-frame
+    check. Returns (corners (S, 4, 2), ok (S,))."""
+    cells = d.marker_bits + 2
+    img = image.to(torch.float32)
+    h, w = img.shape
+    s = corners.shape[0]
+
+    def refine(seed, schedule):
+        return _subpix_refine(image[None], seed.reshape(1, -1, 2),
+                              schedule).reshape(s, 4, 2)
+
+    def consensus(seed, schedule):
+        return seed + _median(refine(seed, schedule) - seed, 1)
+
+    quad = consensus(corners + velocity,
+                     ((cfg.track_win, cfg.subpix_iters),))
+    quad = consensus(quad, ((6, 4),))
+    refined = refine(quad, ((3, 4), (2, 2)))
+    refined = torch.where(torch.abs(refined - quad) > 1.25, quad, refined)
+
+    bits, border_white = _sample_cells(img[None], refined[None], cells)
+    payload = bits[0, :, 1:-1, 1:-1].reshape(s, -1)
+    n = d.num_markers
+    table = torch.as_tensor(d.bits.reshape(n, -1).astype(bool),
+                            device=image.device)
+    expected = table[torch.clamp(slot_ids, 0, n - 1).long()]
+    hamming = (payload ^ expected).sum(-1)
+    slot_live = (slot_ids >= 0) & (slot_ids < n)
+    # the final window (half 3 + 1 px of gradient border) must fit
+    margin = 4.0
+    xs, ys = refined[..., 0], refined[..., 1]
+    in_frame = ((xs > margin) & (xs < w - margin)
+                & (ys > margin) & (ys < h - margin)).all(-1)
+    ok = (mask & slot_live & in_frame
+          & (border_white[0] <= cfg.border_max_white)
+          & (hamming <= cfg.max_hamming))
+    return refined, ok
+
+
+def detect_or_track(image: torch.Tensor, corners: torch.Tensor,
+                    mask: torch.Tensor, velocity: torch.Tensor, do_full,
+                    cfg: DetectorConfig):
+    """One streaming step on an (H, W) frame, slot == id layout: a full
+    sweep when ``do_full`` (a bool or a 0-d bool tensor, read on the
+    host), else tracking with the constant-velocity prior. Only the
+    branch taken runs. Returns (corners, mask, velocity)."""
+    if bool(do_full):
+        det = detect_markers(image, cfg)
+        return (det.corners, det.mask,
+                track_velocity(det.corners, det.mask, corners, mask))
+    nc, nm = track_markers(image, corners, mask, cfg, velocity)
+    return nc, nm, track_velocity(nc, nm, corners, mask)
+
+
+def detect_or_track_mapped(image: torch.Tensor, corners: torch.Tensor,
+                           mask: torch.Tensor, velocity: torch.Tensor,
+                           table_ids: torch.Tensor, do_full,
+                           cfg: DetectorConfig):
+    """`detect_or_track` with the id->slot table: full sweeps claim
+    slots through the table, tracked frames validate each slot against
+    table_ids[slot]. Returns (corners, mask, velocity, table_ids)."""
+    if bool(do_full):
+        det, tids = detect_markers_mapped(image, cfg, table_ids)
+        return (det.corners, det.mask,
+                track_velocity(det.corners, det.mask, corners, mask), tids)
+    nc, nm = track_markers(image, corners, mask, cfg, velocity,
+                           slot_ids=table_ids)
+    return nc, nm, track_velocity(nc, nm, corners, mask), table_ids
+
+
+def _fleet_not_ported(streams, rescue_cohorts: int = 0) -> None:
+    if streams is not None or rescue_cohorts:
+        raise NotImplementedError(
+            "fleet streaming (streams=, detect_or_track_batch*, rescue "
+            "cohorts): not ported yet")
+
+
+def streaming_init(cfg: DetectorConfig, streams: int | None = None,
+                   mapped: bool = False, device=None):
+    """Initial carry (corners, mask, velocity[, table_ids], frame index)
+    of `streaming_step`; the frame index is a host int."""
+    _fleet_not_ported(streams)
+    cr = (torch.zeros((cfg.capacity, 4, 2), device=device),
+          torch.zeros(cfg.capacity, dtype=torch.bool, device=device),
+          torch.zeros((cfg.capacity, 4, 2), device=device))
+    if mapped:
+        cr = cr + (slot_table_init(cfg.capacity, device),)
+    return cr + (0,)
+
+
+def streaming_step(cfg: DetectorConfig, track_every: int,
+                   streams: int | None = None, mapped: bool = False,
+                   rescue_cohorts: int = 0):
+    """The detect-every-K step ``step(carry, image) -> (carry, (corners,
+    mask))``: a full sweep on the 2 bootstrap frames of every
+    ``track_every``-frame period, and at once whenever tracking has
+    nothing left; validated tracking in between. ``mapped`` adds the
+    id->slot table to the carry."""
+    _fleet_not_ported(streams, rescue_cohorts)
+    ke = track_every
+
+    def step(cr, im):
+        c, m, v = cr[:3]
+        i = cr[-1]
+        do_full = (i % ke) < 2 or not bool(m.any())
+        if mapped:
+            c, m, v, tids = detect_or_track_mapped(im, c, m, v, cr[3],
+                                                   do_full, cfg)
+            return (c, m, v, tids, i + 1), (c, m)
+        c, m, v = detect_or_track(im, c, m, v, do_full, cfg)
+        return (c, m, v, i + 1), (c, m)
+
+    return step

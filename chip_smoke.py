@@ -1,22 +1,37 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one GPU.
+"""Drive the PyTorch/CUDA port's paths once on one GPU.
 
     python3 chip_smoke.py            # from the repository root, one card
 
 Phases (each prints its own lines; any failure raises and exits
 non-zero, and no result line is printed):
 
-1. device   — torch/CUDA versions, the card, nvidia-smi's name and
-              power limit; no CUDA device is an error.
-2. build    — nvcc builds every kernel in aruco_slam_tpu_torch/csrc.
-3. kernels  — each kernel's wrapper against its plain PyTorch version
-              on the card, at the main path's shapes, with the stated
-              tolerance; CUDA-event times (median of 20 after warm-up).
-4. main path — 32 rendered 1920x1080 frames through
-              `aruco_slam_tpu_torch.apps.run_slam.main` (robust
-              detector, PnP, MEKF at the run_slam defaults): output
-              files, ATE, detections, and every kernel's launch count
-              in that run; then the frame rate of a second, warm run.
+1. device     — torch/CUDA versions, the card, nvidia-smi's name and
+                power limit; no CUDA device is an error.
+2. build      — nvcc builds every kernel in aruco_slam_tpu_torch/csrc
+                (one nvcc per source, in parallel).
+3. kernels    — each kernel's wrapper against its plain PyTorch version
+                on the card, at its path's shapes, with the stated
+                tolerance; CUDA-event times (median of 20 after
+                warm-up): B1 labeling, B2 subpixel refinement (the
+                detector's schedule and the tracker's three), B3 MEKF
+                update, B4 stencil-only labeling, B5 patch-fed
+                refinement.
+4. main path  — 32 rendered 1920x1080 frames through
+                `aruco_slam_tpu_torch.apps.run_slam.main` (robust
+                detector, PnP, MEKF at the run_slam defaults): output
+                files, ATE, detections, and every kernel's launch count
+                in that run; then the frame rate of a second, warm run.
+5. refine_corners path — `detect.refine_corners` over the 32 frames
+                (launches B5, not B2): median error against the
+                rendered corners.
+6. stencil-only path — `detect_markers_batch_lru` on the 32 frames with
+                `fine_scan_rounds=0`: B4 labels the fine pass, B1 the
+                two coarse ones.
+7. streaming path — `run_slam.main(... --track-every 8)` on the same
+                frames, cold (which frames took a full sweep, launch
+                counts, ATE, tracked-frame detections against the main
+                run) and warm (frames/s beside the main path's).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX and nothing
@@ -35,6 +50,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
+PLATFORM = "cuda"     # the paths' device (run_slam --platform); a
+                      # rehearsal without a card patches the CUDA queries
+                      # and sets "cpu", where the plain versions run
 CHUNK = 32            # run_slam's detection chunk: the kernels' batch
 ATE_BOUND = 0.3       # m, the bound of tests/test_detect.py's image loop
 B1_TOL = 0            # labels are integers: bit-identical
@@ -42,6 +60,15 @@ B2_TOL = 2e-3         # px: float reassociation only (tests/test_detect.py
                       # holds the JAX package's two backends to this)
 B3_TOL = 1e-4         # f32 gain chain in another summation order
                       # (relative to the largest entry, at least 1)
+B4_TOL = 0            # labels are integers: bit-identical
+B5_TOL = 2e-3         # px: B2's loop on gathered patches, as B2
+SIZE = (1920, 1080)   # frame width, height
+TRACK_EVERY = 8       # the streaming path's K
+# the detector's subpixel schedule, the tracker's three pulls and
+# detect.refine_corners' default
+DETECTOR_SCHED = ((6, 6), (3, 4))
+TRACKER_SCHEDS = (((8, 6),), ((6, 4),), ((3, 4), (2, 2)))
+REFINE_SCHED = ((5, 8),)
 
 
 def log(msg: str) -> None:
@@ -129,37 +156,130 @@ def _b1(rng, dev):
             "plain_ms": timing[1]}
 
 
+def _seeds(corners_true, mask_true, rng, per_frame: int, jitter: float):
+    """(T, per_frame, 2) f32 seeds: each frame's true corners moved by
+    up to ``jitter`` px, then random points anywhere in the frame."""
+    w, h = SIZE
+    t = len(mask_true)
+    seeds = rng.uniform([0, 0], [w - 1, h - 1], size=(t, per_frame, 2))
+    n_true = []
+    for i in range(t):
+        true = corners_true[i][mask_true[i]].reshape(-1, 2)[:per_frame]
+        seeds[i, :len(true)] = true + rng.uniform(-jitter, jitter,
+                                                  true.shape)
+        n_true.append(len(true))
+    return seeds.astype("float32"), n_true
+
+
 def _b2(frames, corners_true, mask_true, rng, dev):
     import numpy as np
     import torch
     from aruco_slam_tpu_torch.ops import cuda_subpix
+    t, h, w = frames.shape
+    img = torch.from_numpy(frames).to(dev)
     # 384 seeds per frame (32 candidates x 3 passes x 4 corners): the
     # true corners perturbed like coarse-grid quad seeds, the rest
-    # anywhere in the frame
-    t, h, w = frames.shape
-    seeds = rng.uniform([0, 0], [w - 1, h - 1], size=(t, 384, 2))
-    for i in range(t):
-        true = corners_true[i][mask_true[i]].reshape(-1, 2)
-        seeds[i, :len(true)] = true + rng.uniform(-3, 3, true.shape)
-    img = torch.from_numpy(frames).to(dev)
-    c = torch.tensor(seeds, dtype=torch.float32, device=dev)
-    sched = ((6, 6), (3, 4))
-    got = cuda_subpix.refine_corners(img, c, sched)
-    want = cuda_subpix.refine_corners_plain(img, c, sched)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    ms = cuda_ms(lambda: cuda_subpix.refine_corners(img, c, sched))
-    plain = cuda_ms(lambda: cuda_subpix.refine_corners_plain(img, c, sched),
-                    reps=10)
-    log(f"[B2] refine_corners {tuple(c.shape)} on {h}x{w} uint8: max "
-        f"|kernel - plain| {err:.3e} px (tol {B2_TOL}); kernel {ms:.3f} "
-        f"ms, plain {plain:.3f} ms")
-    if not np.isfinite(err) or err > B2_TOL:
-        raise AssertionError(f"B2 differs from its plain version: {err}")
+    # anywhere in the frame; the tracker pulls <= 64 corners per frame
+    # (16 tracked slots) with its three schedules
+    cases = [(DETECTOR_SCHED, 384)] + [(s, 64) for s in TRACKER_SCHEDS]
+    worst = 0.0
+    timing = None
+    for sched, per_frame in cases:
+        seeds, _ = _seeds(corners_true, mask_true, rng, per_frame, 3.0)
+        c = torch.from_numpy(seeds).to(dev)
+        got = cuda_subpix.refine_corners(img, c, sched)
+        want = cuda_subpix.refine_corners_plain(img, c, sched)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: cuda_subpix.refine_corners(img, c, sched))
+        plain = cuda_ms(lambda: cuda_subpix.refine_corners_plain(
+            img, c, sched), reps=10)
+        rad, _ = cuda_subpix.schedule_params(sched)
+        log(f"[B2] refine_corners {tuple(c.shape)} schedule {sched} (p = "
+            f"{2 * rad + 1}) on {h}x{w} uint8: max |kernel - plain| "
+            f"{err:.3e} px (tol {B2_TOL}); kernel {ms:.3f} ms, plain "
+            f"{plain:.3f} ms")
+        if not np.isfinite(err) or err > B2_TOL:
+            raise AssertionError(f"B2 differs from its plain version at "
+                                 f"{sched}: {err}")
+        if timing is None:
+            timing = (ms, plain)
     return {"name": "refine_corners", "route": "cuda",
             "source": "aruco_slam_tpu_torch/csrc/subpix.cu",
             "replaces": "aruco_slam_tpu/ops/pallas_subpix.py:92",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain}
+            "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1]}
+
+
+def _b4(rng, dev):
+    import torch
+    from aruco_slam_tpu_torch.ops import cuda_cc
+    # the stencil-only schedule (scan_rounds 0) on run_slam's grids at
+    # 1080p and on the fine grid of 4K input, at the fine pass's 16
+    # rounds
+    cases = [(CHUNK, 270, 480), (CHUNK, 540, 960), (2, 1080, 1920)]
+    iters = 16
+    worst = 0
+    timing = None
+    for shape in cases:
+        fg = torch.from_numpy(rng.random(shape) < 0.45).to(dev)
+        got = cuda_cc.flood_labels(fg, iters)
+        want = cuda_cc.flood_labels_plain(fg, iters)
+        torch.cuda.synchronize()
+        bad = int((got != want).sum())
+        worst = max(worst, bad)
+        ms = cuda_ms(lambda: cuda_cc.flood_labels(fg, iters))
+        plain = cuda_ms(lambda: cuda_cc.flood_labels_plain(fg, iters),
+                        reps=10)
+        log(f"[B4] flood_labels {shape} iters {iters}: {bad} labels "
+            f"differ; kernel {ms:.3f} ms, plain {plain:.3f} ms")
+        if bad > B4_TOL:
+            raise AssertionError(f"B4 differs from its plain version at "
+                                 f"{shape}: {bad} labels")
+        if shape[1:] == (540, 960):
+            timing = (ms, plain)
+    return {"name": "flood_labels", "route": "cuda",
+            "source": "aruco_slam_tpu_torch/csrc/flood.cu",
+            "replaces": "aruco_slam_tpu/ops/pallas_cc.py:39",
+            "max_abs_err": float(worst), "ms": timing[0],
+            "plain_ms": timing[1]}
+
+
+def _b5(frames, corners_true, mask_true, rng, dev):
+    import numpy as np
+    import torch
+    from aruco_slam_tpu_torch.ops import cuda_subpix
+    img = torch.from_numpy(frames).to(dev)
+    seeds, _ = _seeds(corners_true, mask_true, rng, 384, 3.0)
+    pts = torch.from_numpy(seeds).to(dev)
+    worst = 0.0
+    timing = None
+    for sched in (REFINE_SCHED, DETECTOR_SCHED):
+        rad, _ = cuda_subpix.schedule_params(sched)
+        p = 2 * rad + 1
+        patches, cx0, cy0 = cuda_subpix.gather_patches(img, pts, rad)
+        c0 = cuda_subpix.start_offsets(pts, cx0, cy0, rad)
+        patches, c0 = patches.reshape(-1, p, p), c0.reshape(-1, 2)
+        got = cuda_subpix.refine_offsets(patches, c0, sched)
+        want = cuda_subpix.refine_offsets_plain(patches, c0, sched)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: cuda_subpix.refine_offsets(patches, c0, sched))
+        plain = cuda_ms(lambda: cuda_subpix.refine_offsets_plain(
+            patches, c0, sched), reps=10)
+        log(f"[B5] refine_offsets {tuple(patches.shape)} schedule {sched}: "
+            f"max |kernel - plain| {err:.3e} px (tol {B5_TOL}); kernel "
+            f"{ms:.3f} ms, plain {plain:.3f} ms")
+        if not np.isfinite(err) or err > B5_TOL:
+            raise AssertionError(f"B5 differs from its plain version at "
+                                 f"{sched}: {err}")
+        if timing is None:
+            timing = (ms, plain)
+    return {"name": "refine_offsets", "route": "cuda",
+            "source": "aruco_slam_tpu_torch/csrc/subpix.cu",
+            "replaces": "aruco_slam_tpu/ops/pallas_subpix.py:38",
+            "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1]}
 
 
 def _capture_update_inputs(corners, mask, cam, marker_size):
@@ -224,55 +344,203 @@ def _b3(captured, dev):
             "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1]}
 
 
-def phase_main(npz: Path, out: Path, gt_t, smi: str):
+def _wrappers():
+    """Every kernel wrapper, each with its launch count."""
+    from aruco_slam_tpu_torch.filters import cuda_mekf
+    from aruco_slam_tpu_torch.ops import cuda_cc, cuda_subpix
+    return (cuda_cc.flood_scan_labels, cuda_subpix.refine_corners,
+            cuda_mekf.fused_update, cuda_cc.flood_labels,
+            cuda_subpix.refine_offsets)
+
+
+def _reset_counts() -> None:
+    for fn in _wrappers():
+        fn.launches = 0
+
+
+def _counts() -> dict:
+    import torch
+    torch.cuda.synchronize()
+    return {fn.__name__: fn.launches for fn in _wrappers()}
+
+
+def _require(counts: dict, path: str, names) -> None:
+    for name in names:
+        if counts[name] <= 0:
+            raise AssertionError(f"the {path} never launched {name}")
+
+
+def _run_slam(argv, gt_t, tag: str):
+    """One run_slam.main call with its checks: output files, a finite
+    trajectory of every frame, ATE under the bound, more than half the
+    frames with a detection."""
     import numpy as np
     import torch
     from aruco_slam_tpu_torch.apps import run_slam
     from aruco_slam_tpu_torch.bench import ate
-    from aruco_slam_tpu_torch.filters import cuda_mekf
     from aruco_slam_tpu_torch.io import read_trajectory
-    from aruco_slam_tpu_torch.ops import cuda_cc, cuda_subpix
-    wrappers = (cuda_cc.flood_scan_labels, cuda_subpix.refine_corners,
-                cuda_mekf.fused_update)
-    argv = ["--input", str(npz), "--platform", "cuda",
-            "--trajectory", str(out / "trajectory.txt"),
-            "--map", str(out / "map.txt")]
-    for fn in wrappers:
-        fn.launches = 0
     res = run_slam.main(argv)
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in wrappers}
     traj_file, map_file = Path(res.trajectory_file), Path(res.map_file)
     if not traj_file.is_file() or not map_file.is_file():
-        raise AssertionError("run_slam wrote no trajectory/map file")
+        raise AssertionError(f"{tag}: run_slam wrote no trajectory/map file")
     _, poses = read_trajectory(traj_file)
     if poses.shape != (len(gt_t), 7) or not np.isfinite(poses).all():
-        raise AssertionError(f"trajectory {poses.shape}, finite "
+        raise AssertionError(f"{tag}: trajectory {poses.shape}, finite "
                              f"{np.isfinite(poses).all()}")
     err = ate.ate_rmse(poses[:, :3], gt_t)
     det = res.obs_mask.sum(axis=1)
-    log(f"[main] ATE {err:.4f} m (bound {ATE_BOUND}); detections per "
+    log(f"[{tag}] ATE {err:.4f} m (bound {ATE_BOUND}); detections per "
         f"frame {det.tolist()}; {len(res.landmark_ids)} landmarks; "
         f"stage seconds {res.seconds}")
     if not err < ATE_BOUND:
-        raise AssertionError(f"ATE {err} m >= {ATE_BOUND} m")
+        raise AssertionError(f"{tag}: ATE {err} m >= {ATE_BOUND} m")
     if (det >= 1).sum() * 2 <= len(det):
-        raise AssertionError("fewer than half the frames had a detection")
-    log(f"[main] launches in the run: {launches}")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"the main path never launched {name}")
+        raise AssertionError(f"{tag}: fewer than half the frames had a "
+                             "detection")
+    return res
 
+
+def _warm(argv, frames: int, tag: str, smi: str) -> float:
+    import torch
+    from aruco_slam_tpu_torch.apps import run_slam
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     warm = run_slam.main(argv)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    fps = len(gt_t) / dt
-    log(f"[main] warm run: {len(gt_t)} frames 1920x1080 in {dt:.3f} s = "
-        f"{fps:.2f} frames/s end to end (front end "
+    fps = frames / dt
+    log(f"[{tag}] warm run: {frames} frames {SIZE[0]}x{SIZE[1]} in "
+        f"{dt:.3f} s = {fps:.2f} frames/s end to end (front end "
         f"{warm.seconds['front_end']:.3f} s, filter "
         f"{warm.seconds['filter']:.3f} s) on {smi}")
+    return fps
+
+
+def phase_main(argv, gt_t, smi: str):
+    _reset_counts()
+    res = _run_slam(argv, gt_t, "main")
+    launches = _counts()
+    log(f"[main] launches in the run: {launches}")
+    _require(launches, "main path", ("flood_scan_labels", "refine_corners",
+                                     "fused_update"))
+    return launches, res, _warm(argv, len(gt_t), "main", smi)
+
+
+def phase_refine_corners(frames, corners_true, mask_true, rng, dev):
+    """detect.refine_corners over the 32 frames: the patch path (B5),
+    not the fused gather (B2), and corners back on the rendered truth."""
+    import numpy as np
+    import torch
+    from aruco_slam_tpu_torch.ops import cuda_subpix, detect
+    img = torch.from_numpy(frames).to(dev)
+    seeds, n_true = _seeds(corners_true, mask_true, rng, 384, 3.0)
+    pts = torch.from_numpy(seeds).to(dev)
+    _reset_counts()
+    got = detect.refine_corners(img, pts)
+    launches = _counts()
+    log(f"[refine_corners] launches in the run: {launches}")
+    _require(launches, "refine_corners path", ("refine_offsets",))
+    if launches["refine_corners"]:
+        raise AssertionError("detect.refine_corners took the fused gather "
+                             "kernel (B2), not the patch path (B5)")
+    want = cuda_subpix.refine_corners_plain(img, pts, REFINE_SCHED)
+    err = float((got - want).abs().max())
+    got = got.cpu().numpy()
+    truth = np.concatenate([got[i, :n] - corners_true[i][mask_true[i]]
+                            .reshape(-1, 2)[:n]
+                            for i, n in enumerate(n_true)])
+    med = float(np.median(np.abs(truth)))
+    log(f"[refine_corners] {tuple(pts.shape)} schedule {REFINE_SCHED}: max "
+        f"|kernel path - plain| {err:.3e} px (tol {B5_TOL}); median "
+        f"|refined - rendered truth| {med:.4f} px over {len(truth)} "
+        "corners seeded +-3 px off")
+    if not np.isfinite(err) or err > B5_TOL:
+        raise AssertionError(f"refine_corners differs from plain: {err}")
+    if not med < 0.5:
+        raise AssertionError(f"refine_corners median error {med} px")
+    return launches
+
+
+def phase_stencil_only(frames, dev):
+    """The detector with fine_scan_rounds=0: B4 labels the fine pass,
+    B1 the two coarse passes, one launch each per chunk."""
+    import torch
+    from aruco_slam_tpu_torch.ops import detect
+    ims = torch.from_numpy(frames).to(dev)
+
+    def sweep(cfg):
+        c = cfg.capacity
+        out = detect.detect_markers_batch_lru(
+            ims, cfg, detect.slot_table_init(c, dev),
+            torch.zeros(c, dtype=torch.int32, device=dev), 0)
+        return out[1].sum(1).tolist()
+
+    default = sweep(detect.DetectorConfig())
+    _reset_counts()
+    stencil = sweep(detect.DetectorConfig(fine_scan_rounds=0))
+    launches = _counts()
+    log(f"[stencil-only] launches in the run: {launches}")
+    log(f"[stencil-only] detections per frame {stencil}; default sweep "
+        f"{default}")
+    if launches["flood_labels"] != 1 or launches["flood_scan_labels"] != 2:
+        raise AssertionError("the stencil-only sweep should launch B4 once "
+                             f"and B1 twice per chunk: {launches}")
+    if sum(n >= 1 for n in stencil) * 2 <= len(stencil):
+        raise AssertionError("stencil-only: fewer than half the frames had "
+                             "a detection")
+    return launches
+
+
+def phase_streaming(argv, gt_t, main_res, main_fps: float, smi: str):
+    """run_slam --track-every K: which frames took a full sweep (B1
+    launches there and only there), ATE, and the tracked frames'
+    detections against the main run's on the same frames."""
+    from aruco_slam_tpu_torch.ops import cuda_cc, detect
+    argv = [*argv, "--track-every", str(TRACK_EVERY)]
+    real = detect.streaming_step
+    frames = []   # (frame index, full sweep due, B1 launches)
+
+    def recording_step(cfg, ke, **kw):
+        step = real(cfg, ke, **kw)
+
+        def recorded(cr, im):
+            i = cr[-1]
+            due = (i % ke) < 2 or not bool(cr[1].any())
+            b1 = cuda_cc.flood_scan_labels.launches
+            out = step(cr, im)
+            frames.append((i, due, cuda_cc.flood_scan_labels.launches - b1))
+            return out
+        return recorded
+
+    _reset_counts()
+    detect.streaming_step = recording_step
+    try:
+        res = _run_slam(argv, gt_t, "streaming")
+    finally:
+        detect.streaming_step = real
+    launches = _counts()
+    full = [i for i, _, b1 in frames if b1]
+    log(f"[streaming] launches in the run: {launches}; full sweeps (B1) "
+        f"on frames {full} of {len(frames)}")
+    _require(launches, "streaming path", ("flood_scan_labels",
+                                          "refine_corners", "fused_update"))
+    wrong = [i for i, due, b1 in frames if bool(b1) != due]
+    if len(frames) != len(gt_t) or wrong:
+        raise AssertionError(f"streaming: B1 launched off the schedule on "
+                             f"frames {wrong} ({len(frames)} frames run)")
+    tracked = [i for i, _, b1 in frames if not b1]
+    got = int(res.obs_mask[tracked].sum())
+    ref = int(main_res.obs_mask[tracked].sum())
+    log(f"[streaming] tracked frames {tracked}: {got} detections, the main "
+        f"run {ref} on the same frames (bar {ref - len(tracked)})")
+    if not tracked or got < ref - len(tracked):
+        raise AssertionError("streaming: tracked frames lost the full "
+                             "sweep's detections")
+    fps = _warm(argv, len(gt_t), "streaming", smi)
+    log(f"[streaming] warm {fps:.2f} frames/s with --track-every "
+        f"{TRACK_EVERY} vs {main_fps:.2f} frames/s for the main path, same "
+        "call")
     return launches
 
 
@@ -287,7 +555,7 @@ def main() -> int:
     from aruco_slam_tpu_torch.io import save_npz
 
     phase_build()
-    dev = torch.device("cuda", 0)
+    dev = torch.device(PLATFORM)
     rng = np.random.default_rng(SEED)
     app = SlamAppConfig(input="")
     cam = cam_mod.CameraModel.from_matrix(
@@ -300,8 +568,9 @@ def main() -> int:
     traj = synthetic.Trajectory(*(
         a[:CHUNK] for a in synthetic.make_orbit_trajectory()))
     t0 = time.perf_counter()
-    frames = render.render_sequence(scene, traj, cam, image_size=(1920, 1080))
-    corners, mask = synthetic.observe_corners(scene, traj, cam, 64)
+    frames = render.render_sequence(scene, traj, cam, image_size=SIZE)
+    corners, mask = synthetic.observe_corners(scene, traj, cam, 64,
+                                              image_size=SIZE)
     log(f"[data] rendered {frames.shape} in "
         f"{time.perf_counter() - t0:.1f} s; visible markers per frame "
         f"{mask.sum(1).tolist()}")
@@ -309,7 +578,8 @@ def main() -> int:
     kernels = [_b1(rng, dev), _b2(frames, corners, mask, rng, dev)]
     captured = _capture_update_inputs(corners, mask, cam,
                                       scene.marker_size)
-    kernels.append(_b3(captured, dev))
+    kernels += [_b3(captured, dev), _b4(rng, dev),
+                _b5(frames, corners, mask, rng, dev)]
 
     with tempfile.TemporaryDirectory() as tmp:
         npz = Path(tmp) / "seq.npz"
@@ -318,9 +588,18 @@ def main() -> int:
                  camera_matrix=np.asarray(app.camera_matrix),
                  dist_coeffs=np.asarray(app.dist_coeffs),
                  marker_size=np.float64(scene.marker_size))
-        launches = phase_main(npz, Path(tmp), traj.cam_t, smi)
+        argv = ["--input", str(npz), "--platform", PLATFORM,
+                "--trajectory", str(Path(tmp) / "trajectory.txt"),
+                "--map", str(Path(tmp) / "map.txt")]
+        main_launches, main_res, main_fps = phase_main(argv, traj.cam_t,
+                                                       smi)
+        path_launches = {
+            "flood_labels": phase_stencil_only(frames, dev),
+            "refine_offsets": phase_refine_corners(frames, corners, mask,
+                                                   rng, dev)}
+        phase_streaming(argv, traj.cam_t, main_res, main_fps, smi)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = path_launches.get(k["name"], main_launches)[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

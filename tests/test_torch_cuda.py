@@ -36,6 +36,102 @@ def test_flood_scan_bit_identical(device, shape, iters, rounds):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("shape,iters", [
+    ((3, 48, 64), 16), ((4, 270, 480), 16), ((2, 540, 960), 16),
+    ((2, 64, 128), 5), ((1, 33, 47), 0), ((2, 100, 70), 23)])
+def test_flood_labels_bit_identical(device, shape, iters):
+    rng = np.random.default_rng(8)
+    fg = torch.from_numpy(rng.random(shape) < 0.4).to(device)
+    before = cuda_cc.flood_labels.launches
+    got = cuda_cc.flood_labels(fg, iters)
+    assert cuda_cc.flood_labels.launches == before + 1
+    want = cuda_cc.flood_labels_plain(fg, iters)
+    assert torch.equal(got, want)
+
+
+def _smooth_image(rng, device, dtype=torch.uint8):
+    img = torch.from_numpy(rng.integers(0, 256, (2, 240, 320),
+                                        dtype=np.uint8)).to(device)
+    return torch.nn.functional.avg_pool2d(
+        img[:, None].float(), 5, 1, 2)[:, 0].to(dtype)  # smooth corners
+
+
+# the detector's schedule, the tracker's three and refine_corners' default
+SCHEDULES = [((6, 6), (3, 4)), ((8, 6),), ((6, 4),), ((3, 4), (2, 2)),
+             ((5, 8),)]
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES)
+def test_subpix_schedules_match_plain(device, schedule):
+    rng = np.random.default_rng(4)
+    img = _smooth_image(rng, device)
+    seeds = torch.tensor(rng.uniform([0, 0], [319, 239], (2, 64, 2)),
+                         dtype=torch.float32, device=device)
+    got = cuda_subpix.refine_corners(img, seeds, schedule)
+    want = cuda_subpix.refine_corners_plain(img, seeds, schedule)
+    assert (got - want).abs().max().item() <= 2e-3  # px, reassociation
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES)
+def test_refine_offsets_matches_plain(device, schedule):
+    rng = np.random.default_rng(5)
+    img = _smooth_image(rng, device)
+    seeds = torch.tensor(rng.uniform([0, 0], [319, 239], (2, 96, 2)),
+                         dtype=torch.float32, device=device)
+    rad, _ = cuda_subpix.schedule_params(schedule)
+    patches, cx0, cy0 = cuda_subpix.gather_patches(img, seeds, rad)
+    c0 = cuda_subpix.start_offsets(seeds, cx0, cy0, rad)
+    p = 2 * rad + 1
+    patches, c0 = patches.reshape(-1, p, p), c0.reshape(-1, 2)
+    before = cuda_subpix.refine_offsets.launches
+    got = cuda_subpix.refine_offsets(patches, c0, schedule)
+    assert cuda_subpix.refine_offsets.launches == before + 1
+    want = cuda_subpix.refine_offsets_plain(patches, c0, schedule)
+    assert (got - want).abs().max().item() <= 2e-3  # px, reassociation
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES)
+def test_subpix_singular_tensor_matches_plain(device, schedule):
+    """On a 45° step edge gx == gy at every pixel, so the structure
+    tensor is exactly rank 1 and the reference's det is exactly 0: no
+    step. An FMA-contracted det leaves a rounding residue above 1e-9
+    and jumps up to +-half (seen at ((3, 4), (2, 2)): 2.97 px)."""
+    yy, xx = np.mgrid[:240, :320]
+    img = torch.from_numpy(np.where(xx + yy > 280, 220, 30).astype(
+        np.uint8))[None].to(device)
+    t = torch.linspace(-60.0, 60.0, 48, device=device)
+    seeds = torch.stack([160.0 + t + 0.3, 120.0 - t + 0.2], -1)[None]
+    rad, _ = cuda_subpix.schedule_params(schedule)
+    got = cuda_subpix.refine_corners(img, seeds, schedule)
+    want = cuda_subpix.refine_corners_plain(img, seeds, schedule)
+    assert (got - want).abs().max().item() <= 2e-3
+    patches, cx0, cy0 = cuda_subpix.gather_patches(img, seeds, rad)
+    c0 = cuda_subpix.start_offsets(seeds, cx0, cy0, rad)
+    p = 2 * rad + 1
+    got = cuda_subpix.refine_offsets(patches.reshape(-1, p, p),
+                                     c0.reshape(-1, 2), schedule)
+    want = cuda_subpix.refine_offsets_plain(patches.reshape(-1, p, p),
+                                            c0.reshape(-1, 2), schedule)
+    assert (got - want).abs().max().item() <= 2e-3
+
+
+def test_refine_corners_takes_the_patch_kernel(device):
+    """detect.refine_corners launches B5 (the patch path, as the JAX
+    function on every backend), not B2."""
+    from aruco_slam_tpu_torch.ops import detect
+    rng = np.random.default_rng(6)
+    img = _smooth_image(rng, device)[0]
+    pts = torch.tensor(rng.uniform([0, 0], [319, 239], (50, 2)),
+                       dtype=torch.float32, device=device)
+    b2 = cuda_subpix.refine_corners.launches
+    b5 = cuda_subpix.refine_offsets.launches
+    got = detect.refine_corners(img, pts)
+    assert cuda_subpix.refine_offsets.launches == b5 + 1
+    assert cuda_subpix.refine_corners.launches == b2
+    want = cuda_subpix.refine_corners_plain(img[None], pts[None], ((5, 8),))
+    assert (got - want[0]).abs().max().item() <= 2e-3
+
+
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
 def test_subpix_matches_plain(device, dtype):
     rng = np.random.default_rng(3)
@@ -84,9 +180,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(device):
                                torch.zeros(3, device=device))
 
 
-def test_run_slam_cuda_matches_cpu(device, tmp_path):
-    """The whole slice on the card against the same slice on the CPU
-    (plain versions), on 8 rendered 960x540 frames."""
+def _run_slam_both(tmp_path, orbit_frames, frames, flags=()):
+    """run_slam on the card and on the CPU (plain versions) over the
+    first ``frames`` frames of an ``orbit_frames`` orbit at 960x540."""
     from aruco_slam_tpu_torch.apps import run_slam
     from aruco_slam_tpu_torch.bench import render, synthetic
     from aruco_slam_tpu_torch.core import camera as cam_mod
@@ -95,21 +191,40 @@ def test_run_slam_cuda_matches_cpu(device, tmp_path):
                   [0.0, 0.0, 1.0]])
     dist = np.array([0.0614, -0.2951, 0.0005, 0.0029, 0.4387])
     scene = synthetic.make_wall_scene(num_markers=10, seed=0)
-    traj = synthetic.make_orbit_trajectory(num_frames=30)
-    traj = synthetic.Trajectory(*(a[:8] for a in traj))
-    frames = render.render_sequence(
+    traj = synthetic.make_orbit_trajectory(num_frames=orbit_frames)
+    traj = synthetic.Trajectory(*(a[:frames] for a in traj))
+    images = render.render_sequence(
         scene, traj, cam_mod.CameraModel.from_matrix(k, dist),
         image_size=(960, 540))
     npz = tmp_path / "seq.npz"
-    save_npz(npz, times=traj.times, images=frames, gt_cam_t=traj.cam_t,
+    save_npz(npz, times=traj.times, images=images, gt_cam_t=traj.cam_t,
              camera_matrix=k, dist_coeffs=dist,
              marker_size=np.float64(scene.marker_size))
     out = {}
     for platform in ("cuda", "cpu"):
         res = run_slam.main(["--input", str(npz), "--platform", platform,
                              "--trajectory", str(tmp_path / f"{platform}.txt"),
-                             "--map", str(tmp_path / f"{platform}_map.txt")])
+                             "--map", str(tmp_path / f"{platform}_map.txt"),
+                             *flags])
         out[platform] = (read_trajectory(res.trajectory_file)[1], res)
+    return out
+
+
+def test_run_slam_track_every_cuda_matches_cpu(device, tmp_path):
+    """The streaming path (--track-every 4) on the card against the CPU,
+    on 12 video-rate frames."""
+    out = _run_slam_both(tmp_path, 300, 12, ["--track-every", "4"])
+    (tc, rc), (tp, rp) = out["cuda"], out["cpu"]
+    assert np.array_equal(rc.obs_mask, rp.obs_mask)
+    assert np.array_equal(np.sort(rc.landmark_ids), np.sort(rp.landmark_ids))
+    np.testing.assert_allclose(tc, tp, atol=2e-3)
+    assert rc.ate < 0.3
+
+
+def test_run_slam_cuda_matches_cpu(device, tmp_path):
+    """The whole slice on the card against the same slice on the CPU
+    (plain versions), on 8 rendered 960x540 frames."""
+    out = _run_slam_both(tmp_path, 30, 8)
     (tc, rc), (tp, rp) = out["cuda"], out["cpu"]
     assert np.array_equal(rc.obs_mask, rp.obs_mask)
     assert np.array_equal(np.sort(rc.landmark_ids), np.sort(rp.landmark_ids))

@@ -15,6 +15,7 @@ import torch
 from aruco_slam_tpu.bench import render, synthetic
 from aruco_slam_tpu.core import camera as jcam
 from aruco_slam_tpu.ops import detect as jd
+from aruco_slam_tpu.ops import pallas_cc, pallas_subpix
 from aruco_slam_tpu_torch.ops import cuda_cc, cuda_subpix
 from aruco_slam_tpu_torch.ops import detect as td
 
@@ -69,6 +70,76 @@ def test_flood_plain_bit_identical(shape, iters, rounds):
                                         scan_rounds=rounds,
                                         pallas_mode="off")
         np.testing.assert_array_equal(got[b].numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("shape", [(48, 64), (270, 480), (540, 960)])
+def test_flood_labels_plain_matches_interpret(shape):
+    """B4's plain version == the Pallas `flood_labels` kernel in
+    interpret mode, bit for bit. The JAX kernel expects the 1-px ring
+    cleared by its caller; the port clears it itself."""
+    rng = np.random.default_rng(9)
+    fg = rng.random((2,) + shape) < 0.4
+    cleared = fg.copy()
+    cleared[:, [0, -1], :] = False
+    cleared[:, :, [0, -1]] = False
+    got = cuda_cc.flood_labels(torch.tensor(fg), 16)
+    assert got.dtype == torch.int32 and got.shape == fg.shape
+    for b in range(2):
+        want = pallas_cc.flood_labels(jnp.asarray(cleared[b]), 16,
+                                      interpret=True)
+        np.testing.assert_array_equal(got[b].numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("rounds", [0, 4])
+def test_connected_components_dispatch(monkeypatch, rounds):
+    """The stencil-only schedule (scan_rounds == 0) goes to B4, every
+    other one to B1; both equal the JAX labeling schedule."""
+    calls = []
+
+    def spy(name):
+        real = getattr(cuda_cc, name)
+
+        def wrapped(*args):
+            calls.append(name)
+            return real(*args)
+        return wrapped
+
+    for name in ("flood_labels", "flood_scan_labels"):
+        monkeypatch.setattr(cuda_cc, name, spy(name))
+    fg = np.random.default_rng(4).random((1, 130, 100)) < 0.3
+    got = td._connected_components(torch.tensor(fg), 16, scan_rounds=rounds)
+    assert calls == ["flood_labels" if rounds == 0 else "flood_scan_labels"]
+    want = jd._connected_components(jnp.asarray(fg[0]), 16,
+                                    scan_rounds=rounds, pallas_mode="off")
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want))
+
+
+# the detector's schedule, the tracker's three and refine_corners' default
+SCHEDULES = [((6, 6), (3, 4)), ((8, 6),), ((6, 4),), ((3, 4), (2, 2)),
+             ((5, 8),)]
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES)
+def test_refine_offsets_plain_matches_interpret(rendered, schedule):
+    """B5's plain version vs the Pallas `refine_offsets` kernel in
+    interpret mode on the same gathered patches: 2e-3 px."""
+    frames, corners, mask = rendered
+    rng = np.random.default_rng(6)
+    seeds = np.concatenate([corners[1][mask[1]].reshape(-1, 2),
+                            rng.uniform([20, 20], [940, 520], (8, 2))])
+    seeds = (seeds + rng.uniform(-3, 3, seeds.shape)).astype(np.float32)
+    rad, sched = cuda_subpix.schedule_params(schedule)
+    pts = torch.tensor(seeds[None])
+    patches, cx0, cy0 = cuda_subpix.gather_patches(
+        torch.tensor(frames[1:2]), pts, rad)
+    c0 = cuda_subpix.start_offsets(pts, cx0, cy0, rad)[0]
+    got = cuda_subpix.refine_offsets(patches[0], c0, schedule)
+    want = pallas_subpix.refine_offsets(jnp.asarray(patches[0].numpy()),
+                                        jnp.asarray(c0.numpy()), sched,
+                                        interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-3)
+    with pytest.raises(ValueError):
+        cuda_subpix.refine_offsets(patches[0][:, 1:, 1:], c0, schedule)
 
 
 def test_subpix_plain_matches_interpret(rendered):

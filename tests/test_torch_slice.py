@@ -1,8 +1,10 @@
 """The port's pixels->pose slice end to end, against the JAX run_slam.
 
 `aruco_slam_tpu_torch.apps.run_slam` and `aruco_slam_tpu.apps.run_slam`
-run on the same rendered npz on the CPU; plus the port's import
-hygiene (no jax) and its refusal to run "cuda" without a card.
+run on the same rendered npz on the CPU, with full detection on every
+frame and with the streaming tracker (``--track-every``); plus the
+port's import hygiene (no jax) and its refusal to run "cuda" without a
+card.
 """
 
 import os
@@ -47,7 +49,24 @@ def sequence(tmp_path_factory):
     return path
 
 
-def test_run_slam_matches_jax(sequence, tmp_path, monkeypatch):
+@pytest.fixture(scope="module")
+def video_rate(tmp_path_factory):
+    """12 rendered 960x540 frames at video rate (the first of a
+    300-frame orbit), the streaming tracker's motion regime."""
+    cam = jcam.CameraModel.from_matrix(jnp.asarray(K2),
+                                       jnp.asarray(DIST))
+    scene = synthetic.make_wall_scene(num_markers=10, seed=0)
+    traj = synthetic.make_orbit_trajectory(num_frames=300)
+    traj = synthetic.Trajectory(*(a[:12] for a in traj))
+    frames = render.render_sequence(scene, traj, cam, image_size=(960, 540))
+    path = tmp_path_factory.mktemp("video") / "seq.npz"
+    save_npz(path, times=traj.times, images=frames, gt_cam_t=traj.cam_t,
+             camera_matrix=K2, dist_coeffs=DIST,
+             marker_size=np.float64(scene.marker_size))
+    return path
+
+
+def _run_both(npz, tmp_path, monkeypatch, flags=()):
     # the JAX run_slam takes its fused Pallas update only on a TPU; here
     # it runs that kernel in interpret mode, as the port's update is its
     # counterpart (on the CPU the JAX default is a Cholesky gain, which
@@ -59,13 +78,14 @@ def test_run_slam_matches_jax(sequence, tmp_path, monkeypatch):
     for name, mod in (("jax", jrun), ("torch", trun)):
         traj_f = tmp_path / f"{name}_traj.txt"
         map_f = tmp_path / f"{name}_map.txt"
-        res = mod.main(["--input", str(sequence), "--platform", "cpu",
-                        "--trajectory", str(traj_f), "--map", str(map_f)])
+        res = mod.main(["--input", str(npz), "--platform", "cpu",
+                        "--trajectory", str(traj_f), "--map", str(map_f),
+                        *flags])
         out[name] = (read_trajectory(traj_f)[1], load_map(map_f))
-    assert res.ate is not None and res.ate < 0.3
-    assert res.obs_mask.sum(axis=1).min() >= 1
-    (tj, mj), (tt, mt) = out["jax"], out["torch"]
-    assert tt.shape == tj.shape == (8, 7)
+    return res, out["jax"], out["torch"]
+
+
+def _assert_close(tj, mj, tt, mt):
     # corners agree to 1e-3 px and the JAX PnP runs in float64 here
     # (x64 test mode) against the port's float32: 2e-3 m / 2e-3 on the
     # quaternion, far inside the 1 px corner noise the filter assumes
@@ -75,8 +95,57 @@ def test_run_slam_matches_jax(sequence, tmp_path, monkeypatch):
     np.testing.assert_allclose(mt[1][order_t], mj[1][order_j], atol=2e-3)
 
 
+def test_run_slam_matches_jax(sequence, tmp_path, monkeypatch):
+    res, (tj, mj), (tt, mt) = _run_both(sequence, tmp_path, monkeypatch)
+    assert res.ate is not None and res.ate < 0.3
+    assert res.obs_mask.sum(axis=1).min() >= 1
+    assert tt.shape == tj.shape == (8, 7)
+    _assert_close(tj, mj, tt, mt)
+
+
+def test_run_slam_track_every_matches_jax(video_rate, tmp_path,
+                                          monkeypatch):
+    """--track-every 4: full sweeps on frames 0, 1, 4, 5, 8, 9, tracking
+    on the rest, the carry crossing the (single, short) chunk."""
+    res, (tj, mj), (tt, mt) = _run_both(video_rate, tmp_path, monkeypatch,
+                                        ["--track-every", "4"])
+    assert res.ate is not None and res.ate < 0.3
+    counts = res.obs_mask.sum(axis=1)
+    assert counts.min() >= 3, counts
+    assert tt.shape == tj.shape == (12, 7)
+    _assert_close(tj, mj, tt, mt)
+
+
+def test_run_slam_track_every_chunks(video_rate, tmp_path, monkeypatch):
+    """The streaming carry crosses chunk boundaries: chunks of 5 frames
+    give the same trajectory as one chunk."""
+    out = []
+    real = trun._observations_from_frames
+    for chunk in (32, 5):
+        monkeypatch.setattr(trun, "_observations_from_frames",
+                            lambda *a, _c=chunk: real(*a, chunk=_c))
+        res = trun.main(["--input", str(video_rate), "--platform", "cpu",
+                         "--track-every", "4",
+                         "--trajectory", str(tmp_path / f"t{chunk}.txt"),
+                         "--map", str(tmp_path / f"m{chunk}.txt")])
+        out.append(res)
+    np.testing.assert_array_equal(out[0].obs_mask, out[1].obs_mask)
+    np.testing.assert_allclose(out[0].cam_traj, out[1].cam_traj, atol=1e-5)
+
+
+@pytest.mark.parametrize("flags,error", [
+    (["--track-every", "2"], SystemExit),
+    (["--track-every", "4", "--slot-max-age", "8"], ValueError)])
+def test_track_every_refusals(video_rate, flags, error):
+    """As the JAX run_slam: K < 3 is a usage error, and the streaming
+    carry does not thread the LRU table."""
+    with pytest.raises(error):
+        trun.main(["--input", str(video_rate), "--platform", "cpu", *flags])
+
+
 @pytest.mark.parametrize("flags", [
-    ["--filter", "factorgraph"], ["--track-every", "3"], ["--viz-2d"],
+    ["--filter", "factorgraph"], ["--filter", "mekf_rotations"],
+    ["--viz-2d"],
     ["--checkpoint-every", "4"], ["--load-map", "map.txt"]])
 def test_unported_paths_refuse(sequence, flags):
     with pytest.raises(NotImplementedError, match="not ported yet"):
