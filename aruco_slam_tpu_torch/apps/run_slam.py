@@ -1,9 +1,9 @@
 """Online SLAM command line on PyTorch/CUDA.
 
-Counterpart of aruco_slam_tpu/apps/run_slam.py for its default path:
+Counterpart of aruco_slam_tpu/apps/run_slam.py for its MEKF paths:
 
     python -m aruco_slam_tpu_torch.apps.run_slam --input seq.npz \
-        [--platform cuda|cpu]
+        [--platform cuda|cpu] [--filter mekf|mekf_rotations]
 
 frames -> `ops.detect.detect_markers_batch_lru` (robust sweep, chunks
 of 32) -> `ops.pnp.solve_square_pnp` -> `filters.mekf.mekf_scan` ->
@@ -12,11 +12,15 @@ npz input may carry `images`, `corners` or pose-level `t_cl` bundles;
 video input is decoded by the JAX package's JAX-free `VideoSource`.
 
 ``--track-every K`` runs the streaming front end instead of full
-detection on every frame (`ops.detect.streaming_step`). ``--platform
-cuda`` is the default and raises when no card is present; the run never
-moves to the CPU in its place. Flags of the JAX run_slam that select
-paths not ported yet (the factor graph, rotation landmarks, multi-stream
-serving, viewers, checkpoints, map preloading, slot recycling) are
+detection on every frame (`ops.detect.streaming_step`);
+``--slot-max-age N`` recycles stale id->slot table slots and resets
+their landmarks; ``--load-map`` seeds the filter with a saved map;
+``--input a.npz,b.npz,...`` serves S streams at once (detection over the
+S·T frames of a chunk as one batch, the S filters in one batched step;
+per-stream output files). ``--platform cuda`` is the default and raises
+when no card is present; the run never moves to the CPU in its place.
+Flags of the JAX run_slam that select paths not ported yet (the factor
+graph, viewers, checkpoints, ``--track-every`` with several inputs) are
 accepted and refused with a "not ported yet" error.
 """
 
@@ -38,12 +42,16 @@ from aruco_slam_tpu_torch.filters import mekf as mekf_mod
 from aruco_slam_tpu_torch.filters import (
     FrameObservations, MekfConfig, init_state, mekf_scan)
 from aruco_slam_tpu_torch.io import (
-    NpzSource, TrajectoryWriter, is_video, save_map, video_frames)
+    NpzSource, TrajectoryWriter, is_video, load_map, save_map,
+    video_frames)
 from aruco_slam_tpu_torch.ops import detect, pnp
+from aruco_slam_tpu_torch.parallel.multi_slam import (
+    batched_mekf_scan, stack_states)
 
 
 class RunResult(NamedTuple):
-    """What `main` wrote and measured."""
+    """What `main` wrote and measured (one per stream with several
+    inputs)."""
 
     trajectory_file: str
     map_file: str
@@ -71,31 +79,34 @@ def _camera(k, d, device) -> cam_mod.CameraModel:
         device=device)
 
 
+def _detector_config(cfg: SlamAppConfig) -> detect.DetectorConfig:
+    return detect.with_preset(
+        detect.DetectorConfig(capacity=cfg.capacity,
+                              dict_name=cfg.dict_name,
+                              slot_max_age=cfg.slot_max_age),
+        cfg.detector)
+
+
 def _observations_from_frames(frame_iter, cam, cfg: SlamAppConfig,
                               device: torch.device, chunk: int = 32):
     """Image front end over a (timestamp, gray) iterator: detection +
     batched PnP in fixed-size chunks, slots claimed first-seen through
-    the id->slot table. Full detection runs each chunk as one batch
-    (the tail chunk zero-padded). With ``cfg.track_every`` K the chunk
-    runs frame by frame through `detect.streaming_step` (full sweep on
-    2 of every K frames, validated tracking in between), whose carry
-    (corners, mask, velocity, table, frame index) crosses the chunks;
-    its tail chunk is not padded, since a zero frame would change
-    neither the table nor any real frame's output. Returns the loader
-    tuple (times, t_cl, q_cl, mask, cam, ambiguity, slot_ids, reset,
-    ids_seq) as numpy arrays."""
+    the id->slot table (recycled stalest-first with ``--slot-max-age``).
+    Full detection runs each chunk as one batch (the tail chunk
+    zero-padded). With ``cfg.track_every`` K the chunk runs frame by
+    frame through `detect.streaming_step` (full sweep on 2 of every K
+    frames, validated tracking in between), whose carry (corners, mask,
+    velocity, table, frame index) crosses the chunks; its tail chunk is
+    not padded, since a zero frame would change neither the table nor
+    any real frame's output. Returns the loader tuple (times, t_cl, q_cl,
+    mask, cam, ambiguity, slot_ids, reset, ids_seq) as numpy arrays;
+    ``reset`` and ``ids_seq`` (T, C) only with ``--slot-max-age``."""
     ke = cfg.track_every
     if ke and cfg.slot_max_age:
         raise ValueError("--slot-max-age with --track-every is not "
                          "supported yet: the streaming carry does not "
                          "thread the LRU table")
-    if cfg.slot_max_age:
-        _not_ported("--slot-max-age (LRU slot recycling)")
-    dcfg = detect.with_preset(
-        detect.DetectorConfig(capacity=cfg.capacity,
-                              dict_name=cfg.dict_name,
-                              slot_max_age=cfg.slot_max_age),
-        cfg.detector)
+    dcfg = _detector_config(cfg)
     times, buf, outs = [], [], []
     table = detect.slot_table_init(dcfg.capacity, device)
     seen = torch.zeros(dcfg.capacity, dtype=torch.int32, device=device)
@@ -115,19 +126,21 @@ def _observations_from_frames(frame_iter, cam, cfg: SlamAppConfig,
                 per_frame.append(out)
             det_c, det_m = (torch.stack(x) for x in zip(*per_frame))
             table = carry[3]
+            reset = ids_f = None
             dropped = torch.zeros(n, dtype=torch.int32, device=device)
         else:
             if n < chunk:
                 buf.extend([np.zeros_like(buf[0])] * (chunk - n))
             ims = torch.from_numpy(np.stack(buf)).to(device)
-            det_c, det_m, _reset, _ids, table, seen, dropped = \
+            det_c, det_m, reset, ids_f, table, seen, dropped = \
                 detect.detect_markers_batch_lru(ims, dcfg, table, seen,
                                                 fidx)
         fidx += n
         res = pnp.solve_square_pnp(cam, det_c, cfg.marker_size)
         mask = det_m & (res.err < cfg.max_reproj_px)
         amb = res.err / torch.clamp(res.err2, min=1e-9)
-        outs.append((res.t_cl, res.q_cl, mask, amb, dropped, n))
+        outs.append((res.t_cl, res.q_cl, mask, amb, reset, ids_f, dropped,
+                     n))
         buf.clear()
 
     for ts, gray in frame_iter:
@@ -140,13 +153,16 @@ def _observations_from_frames(frame_iter, cam, cfg: SlamAppConfig,
         raise ValueError("no decodable frames")
     cat = lambda i: np.concatenate(
         [o[i][:o[-1]].cpu().numpy() for o in outs])
-    dropped_ids = int(sum(int(o[4][:o[-1]].sum()) for o in outs))
+    dropped_ids = int(sum(int(o[6][:o[-1]].sum()) for o in outs))
     if dropped_ids:
         print(f"WARNING: {dropped_ids} marker sightings found NO free "
               f"slot (id->slot table saturated at capacity "
-              f"{dcfg.capacity}); raise --capacity")
+              f"{dcfg.capacity}); raise --capacity or set "
+              "--slot-max-age N to recycle stale slots")
+    recycle = bool(cfg.slot_max_age)
     return (np.asarray(times), cat(0), cat(1), cat(2), cam, cat(3),
-            table.cpu().numpy(), None, None)
+            table.cpu().numpy(), cat(4) if recycle else None,
+            cat(5) if recycle else None)
 
 
 def load_observations(src: NpzSource, cfg: SlamAppConfig,
@@ -193,8 +209,10 @@ def _auto_max_obs(cfg: SlamAppConfig, mask, capacity: int) -> int:
 
 
 def _mekf_config(cfg: SlamAppConfig, capacity: int, max_obs: int,
-                 cam) -> MekfConfig:
+                 with_rotations: bool, cam) -> MekfConfig:
+    """Driver flags -> MekfConfig (single- and multi-stream paths)."""
     return MekfConfig(capacity=capacity, max_obs=max_obs,
+                      with_rotations=with_rotations,
                       r_uncertainty=cfg.mekf_r,
                       q_uncertainty_cam=cfg.mekf_q_cam,
                       q_error_uncertainty_cam=cfg.mekf_q_rot,
@@ -209,35 +227,202 @@ def _mekf_config(cfg: SlamAppConfig, capacity: int, max_obs: int,
                       gate_distance=cfg.gate_distance)
 
 
+def _dev(a, device, dtype=None):
+    return None if a is None else torch.as_tensor(
+        np.asarray(a), dtype=dtype, device=device)
+
+
+def _preload(fcfg: MekfConfig, state, load_map_file, slot_ids):
+    """Seed the filter with a saved map. Under the id->slot table the
+    map's marker ids translate to this run's slots; landmarks the
+    sequence never observed have no slot and are skipped (they could not
+    receive an update anyway)."""
+    ids, pos, unc = load_map(load_map_file)
+    if slot_ids is not None:
+        lut = {int(mid): s for s, mid in enumerate(slot_ids) if mid >= 0}
+        keep = [j for j in range(len(ids)) if int(ids[j]) in lut]
+        if len(keep) < len(ids):
+            print(f"load-map: {len(ids) - len(keep)} landmarks "
+                  "not observed in this sequence; skipped")
+        pos, unc = pos[keep], unc[keep]
+        ids = np.array([lut[int(ids[j])] for j in keep], np.int64)
+    if len(ids):
+        state = mekf_mod.preload_map(fcfg, state, ids, pos, unc)
+    return state
+
+
+def _warn_dropped(dropped: np.ndarray, max_obs: int) -> None:
+    """Warn when the max_obs compaction dropped observations (a count, or
+    one per stream)."""
+    if dropped.sum():
+        print(f"WARNING: {dropped.tolist()} observations were dropped by "
+              f"the max_obs={max_obs} update compaction (densest frames "
+              "exceeded it); raise --max-obs")
+
+
 def run_mekf(cfg: SlamAppConfig, times, t_cl, q_cl, mask, cam,
-             device: torch.device, ambiguity=None, reset=None):
+             device: torch.device, with_rotations: bool = False,
+             load_map_file=None, ambiguity=None, slot_ids=None,
+             reset=None):
     """Filter the whole sequence; returns (cam_traj (T, 7), active (C,),
     landmark positions (C, 3), uncertainties (C, 3))."""
     max_obs = _auto_max_obs(cfg, mask, t_cl.shape[1])
-    fcfg = _mekf_config(cfg, t_cl.shape[1], max_obs, cam)
+    fcfg = _mekf_config(cfg, t_cl.shape[1], max_obs, with_rotations, cam)
     state = init_state(fcfg, device=device)
-
-    def dev(a, dtype=None):
-        return None if a is None else torch.as_tensor(
-            np.asarray(a), dtype=dtype, device=device)
-
-    seq = FrameObservations(dev(t_cl, torch.float32),
-                            dev(q_cl, torch.float32), dev(mask),
-                            dev(ambiguity, torch.float32), dev(reset))
+    if load_map_file:
+        state = _preload(fcfg, state, load_map_file, slot_ids)
+    f32 = torch.float32
+    seq = FrameObservations(
+        _dev(t_cl, device, f32), _dev(q_cl, device, f32),
+        _dev(mask, device), _dev(ambiguity, device, f32),
+        _dev(reset, device))
     state, traj = mekf_scan(fcfg, state, seq)
-    if int(state.dropped_obs):
-        print(f"WARNING: {int(state.dropped_obs)} observations were "
-              f"dropped by the max_obs={fcfg.max_obs} update "
-              "compaction (densest frames exceeded it); raise --max-obs")
+    _warn_dropped(state.dropped_obs.cpu().numpy(), fcfg.max_obs)
     unc = mekf_mod.landmark_uncertainties(fcfg, state).cpu().numpy()
     return (traj.cpu().numpy(), state.active.cpu().numpy(),
             state.lm.cpu().numpy()[:, :3], unc[:, :3])
 
 
+def _stream_path(path: str, i: int) -> str:
+    """Per-stream output path: outputs/trajectory.txt -> _s0/_s1/..."""
+    pp = Path(path)
+    return str(pp.with_name(f"{pp.stem}_s{i}{pp.suffix}"))
+
+
+def _load_stream_frames(path: str, cfg: SlamAppConfig):
+    """One stream's (times, frames (T, H, W) uint8, (K, dist) or None,
+    npz source or None)."""
+    if is_video(path):
+        pairs = list(video_frames(path))
+        if not pairs:
+            raise ValueError(f"{path}: no decodable frames")
+        return (np.asarray([t for t, _ in pairs]),
+                np.stack([f for _, f in pairs]), None, None)
+    src = NpzSource(path)
+    if not src.has("images"):
+        raise ValueError(f"{path}: multi-stream serving needs image "
+                         "input (npz 'images' or video)")
+    calib = None
+    if src.has("camera_matrix"):
+        calib = (src["camera_matrix"], src["dist_coeffs"]
+                 if src.has("dist_coeffs") else cfg.dist_coeffs)
+    return src.times, src["images"], calib, src
+
+
+def run_multi_stream(cfg: SlamAppConfig, inputs: list[str], calib_dir,
+                     device: torch.device, chunk: int = 32
+                     ) -> list[RunResult]:
+    """Online multi-camera serving, as the JAX run_multi_stream's
+    full-detection branch: S streams (truncated to the shortest) through
+    the image->pose pipeline together. Each chunk's S·T frames run the
+    candidate sweep as one batch; slot assignment then steps the S
+    per-stream id->slot tables together; PnP runs on all S·T frames and
+    the S filters step together (`parallel.multi_slam.batched_mekf_scan`,
+    one fused-update launch per frame). Outputs land in per-stream files
+    (trajectory_s0.txt, map_s0.txt, ...); with a shared ``--max-obs``
+    each stream matches its single-stream run."""
+    seconds = {}
+    t0 = time.perf_counter()
+    loaded = [_load_stream_frames(p, cfg) for p in inputs]
+    s = len(loaded)
+    tlen = min(len(t) for t, _, _, _ in loaded)
+    if any(len(t) != tlen for t, _, _, _ in loaded):
+        print(f"streams have unequal lengths; truncating all to "
+              f"{tlen} frames")
+    times = loaded[0][0][:tlen]
+    calib = next((c for _, _, c, _ in loaded if c is not None), None)
+    if calib is None:
+        calib = (cfg.camera_matrix, cfg.dist_coeffs)
+        if calib_dir:
+            calib = (np.load(Path(calib_dir) / "camera_matrix.npy"),
+                     np.load(Path(calib_dir) / "dist_coeffs.npy"))
+    cam = _camera(*calib, device)
+    for _, _, _, src in loaded:  # npz marker size, as one stream's path
+        if src is not None and src.has("marker_size"):
+            cfg.marker_size = float(src["marker_size"])
+            break
+    frames = np.stack([f[:tlen] for _, f, _, _ in loaded])  # (S,T,H,W)
+    dcfg = _detector_config(cfg)
+    seconds["load"] = time.perf_counter() - t0
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    tables = detect.slot_table_init(dcfg.capacity, device, streams=s)
+    seen = torch.zeros((s, dcfg.capacity), dtype=torch.int32,
+                       device=device)
+    outs = []
+    for c0 in range(0, tlen, chunk):
+        ims = frames[:, c0:c0 + chunk]
+        n = ims.shape[1]
+        if n < chunk:  # zero-pad the tail, as the single-stream path
+            ims = np.concatenate(
+                [ims, np.zeros((s, chunk - n) + ims.shape[2:], ims.dtype)],
+                axis=1)
+        det_c, det_m, _, _, tables, seen, _ = detect.detect_markers_batch_lru(
+            torch.from_numpy(ims).to(device), dcfg, tables, seen, c0)
+        res = pnp.solve_square_pnp(cam, det_c, cfg.marker_size)
+        mask = det_m & (res.err < cfg.max_reproj_px)
+        amb = res.err / torch.clamp(res.err2, min=1e-9)
+        outs.append([x[:, :n] for x in (res.t_cl, res.q_cl, mask, amb)])
+    t_cl, q_cl, mask, amb = (torch.cat([o[i] for o in outs], 1)
+                             for i in range(4))
+    _sync(device)
+    seconds["front_end"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    mask_np = mask.cpu().numpy()
+    max_obs = _auto_max_obs(cfg, mask_np, dcfg.capacity)
+    fcfg = _mekf_config(cfg, dcfg.capacity, max_obs,
+                        cfg.filter == "mekf_rotations", cam)
+    states = stack_states([init_state(fcfg, device=device)] * s)
+    states, trajs = batched_mekf_scan(
+        fcfg, states, FrameObservations(t_cl, q_cl, mask, amb))
+    trajs = trajs.cpu().numpy()
+    _sync(device)
+    seconds["filter"] = time.perf_counter() - t0
+    _warn_dropped(states.dropped_obs.cpu().numpy(), fcfg.max_obs)
+    peak = ""
+    if device.type == "cuda":
+        seconds["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+        peak = f", peak device memory {seconds['peak_bytes'] / 2**30:.2f} GiB"
+    print(f"fleet: {s} streams x {tlen} frames, front end "
+          f"{seconds['front_end']:.3f}s (input load {seconds['load']:.3f}s),"
+          f" filter {seconds['filter']:.3f}s ({device}){peak}")
+
+    unc = mekf_mod.landmark_uncertainties(fcfg, states).cpu().numpy()
+    active = states.active.cpu().numpy()
+    lm = states.lm.cpu().numpy()[..., :3]
+    table_np = tables.cpu().numpy()
+    results = []
+    for i in range(s):
+        tf = _stream_path(cfg.trajectory_file, i)
+        with TrajectoryWriter(tf) as w:
+            for ts, pose in zip(times, trajs[i]):
+                w.write(float(ts), pose)
+        slots = np.where(active[i])[0]
+        ids = table_np[i][slots]
+        mf = _stream_path(cfg.map_file, i)
+        save_map(mf, ids, lm[i][slots], unc[i][:, :3][slots])
+        line = f"stream {i}: {tf} ({tlen} poses), {mf} " \
+               f"({len(ids)} landmarks)"
+        err = None
+        src = loaded[i][3]
+        if src is not None and src.has("gt_cam_t"):
+            err = float(ate.ate_rmse(trajs[i][:, :3],
+                                     src["gt_cam_t"][:tlen]))
+            line += f", ATE {err:.4f} m"
+        print(line)
+        results.append(RunResult(tf, mf, trajs[i], mask_np[i], ids, err,
+                                 seconds))
+    return results
+
+
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="marker SLAM on PyTorch/CUDA")
     dflt = SlamAppConfig(input="")
-    p.add_argument("--input", required=True, help=".npz sequence or video")
+    p.add_argument("--input", required=True,
+                   help=".npz sequence or video; several, comma-"
+                        "separated, for multi-stream serving")
     p.add_argument("--platform", default="cuda", choices=["cuda", "cpu"],
                    help="device to run on; cuda raises without a card")
     p.add_argument("--filter", default="mekf",
@@ -247,10 +432,17 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--calib", default=None,
                    help="directory with camera_matrix.npy + "
                         "dist_coeffs.npy (video input)")
+    p.add_argument("--load-map", default=None,
+                   help="seed the filter with a saved map")
     p.add_argument("--detector", default=dflt.detector,
                    choices=["robust", "fast"])
     p.add_argument("--capacity", type=int, default=dflt.capacity)
     p.add_argument("--dict", dest="dict_name", default=dflt.dict_name)
+    p.add_argument("--slot-max-age", type=int, default=dflt.slot_max_age,
+                   metavar="N",
+                   help="recycle id->slot table slots whose marker went "
+                        "unobserved for N frames once the table is full "
+                        "(0 = permanent slots)")
     p.add_argument("--mekf-r", type=float, default=dflt.mekf_r)
     p.add_argument("--mekf-q-cam", type=float, default=dflt.mekf_q_cam)
     p.add_argument("--mekf-q-rot", type=float, default=dflt.mekf_q_rot)
@@ -261,7 +453,10 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--mekf-q-vel", type=float, default=dflt.mekf_q_vel)
     p.add_argument("--vel-decay", type=float, default=dflt.mekf_vel_decay)
     p.add_argument("--precision", default=dflt.mekf_precision,
-                   choices=["highest", "high", "mixed", "default"])
+                   choices=["highest", "high", "mixed", "default"],
+                   help="matmul precision of the filter's non-kernel "
+                        "products on a card (mixed = bf16 covariance "
+                        "products, f32 gain chain); f32 on the CPU")
     p.add_argument("--gate-distance", type=float,
                    default=dflt.gate_distance)
     p.add_argument("--max-obs", type=int, default=dflt.max_obs)
@@ -270,31 +465,42 @@ def _parser() -> argparse.ArgumentParser:
                         "frames, decode-validated tracking in between "
                         "(K >= 3; 0 = full detection every frame)")
     # the JAX run_slam's other paths: accepted, refused below
-    p.add_argument("--slot-max-age", type=int, default=0)
+    p.add_argument("--rescue-cohorts", type=int, default=0)
     p.add_argument("--viz-2d", action="store_true")
     p.add_argument("--viz-3d", action="store_true")
     p.add_argument("--display", action="store_true")
     p.add_argument("--checkpoint-every", type=int, default=0)
     p.add_argument("--resume", default=None)
-    p.add_argument("--load-map", default=None)
     return p
 
 
-def main(argv=None) -> RunResult:
+def main(argv=None) -> RunResult | list[RunResult]:
     parser = _parser()
     args = parser.parse_args(argv)
     if args.track_every and args.track_every < 3:
         parser.error("--track-every needs K >= 3 (2 full frames bootstrap "
                      "the velocity prior)")
-    if args.filter != "mekf":
-        _not_ported(f"--filter {args.filter}")
-    if "," in args.input:
-        _not_ported("multi-stream serving (--input a,b,...)")
+    inputs = [s for s in args.input.split(",") if s]
+    fleet = "," in args.input
+    if fleet:  # the JAX run_slam's refusals, word for word in effect
+        if args.slot_max_age:
+            parser.error("--slot-max-age is not supported by multi-stream "
+                         "serving yet (the fleet detector threads per-"
+                         "stream id->slot tables without the LRU carry); "
+                         "run corridor-scale streams individually")
+        if args.filter == "factorgraph":
+            parser.error("multi-stream serving runs the MEKF backends; for "
+                         "batch factor-graph fleets use run_offline --fleet")
+        if args.track_every:
+            _not_ported("multi-stream serving with --track-every (fleet "
+                        "streaming)")
+    if args.filter == "factorgraph":
+        _not_ported("--filter factorgraph")
     for flag, on in (("--viz-2d", args.viz_2d), ("--viz-3d", args.viz_3d),
                      ("--display", args.display),
                      ("--checkpoint-every", args.checkpoint_every),
                      ("--resume", args.resume),
-                     ("--load-map", args.load_map)):
+                     ("--rescue-cohorts", args.rescue_cohorts)):
         if on:
             _not_ported(flag)
     device = resolve_device(args.platform)
@@ -311,6 +517,8 @@ def main(argv=None) -> RunResult:
         dict_name=args.dict_name, track_every=args.track_every,
         detector=args.detector, capacity=args.capacity,
         slot_max_age=args.slot_max_age)
+    if fleet:
+        return run_multi_stream(cfg, inputs, args.calib, device)
 
     seconds = {}
     t0 = time.perf_counter()
@@ -325,15 +533,18 @@ def main(argv=None) -> RunResult:
             device)
     else:
         src = NpzSource(cfg.input)
+        seconds["load"] = time.perf_counter() - t0
         obs = load_observations(src, cfg, device)
     times, t_cl, q_cl, mask, cam, amb, slot_ids, reset, _ids = obs
     _sync(device)
     seconds["front_end"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    cam_traj, active, lm, unc = run_mekf(cfg, times, t_cl, q_cl, mask,
-                                         cam, device, ambiguity=amb,
-                                         reset=reset)
+    cam_traj, active, lm, unc = run_mekf(
+        cfg, times, t_cl, q_cl, mask, cam, device,
+        with_rotations=cfg.filter == "mekf_rotations",
+        load_map_file=args.load_map, ambiguity=amb, slot_ids=slot_ids,
+        reset=reset)
     _sync(device)
     seconds["filter"] = time.perf_counter() - t0
     tt = len(times)
@@ -344,6 +555,8 @@ def main(argv=None) -> RunResult:
         for ts, pose in zip(times, cam_traj):
             w.write(float(ts), pose)
     slots = np.where(active)[0]
+    # under the id->slot table the map file records TRUE marker ids
+    # (slot index == id for corner-/pose-level inputs)
     ids = slot_ids[slots] if slot_ids is not None else slots
     save_map(cfg.map_file, ids, lm[slots], unc[slots])
     print(f"wrote {cfg.trajectory_file} ({tt} poses), "

@@ -6,6 +6,10 @@ inn = K·resid; P' = sym((I−KH)P(I−KH)ᵀ + K diag(r) Kᵀ). The kernel is
 ``csrc/mekf_update.cu`` (every product in the repo's own tiled GEMM,
 no cuBLAS); `fused_update_plain` is the same chain in PyTorch matmuls
 at full f32 and is what a CPU tensor runs.
+
+Both take one filter, or S filters (streams) stacked along a leading
+axis: the JAX fleet vmaps its whole filter, Pallas update included, and
+here a frame of S streams is one launch sequence.
 """
 
 from __future__ import annotations
@@ -20,35 +24,40 @@ from aruco_slam_tpu_torch import _build
 def fused_update_plain(cov: torch.Tensor, h: torch.Tensor,
                        r_diag: torch.Tensor, resid: torch.Tensor,
                        ns_iters: int = 20):
-    """Returns (innovation (N,), new_cov (N, N)), f32."""
-    m = h.shape[0]
-    n = h.shape[1]
-    ph_t = cov @ h.T                                   # (N, M)
+    """Returns (innovation (..., N), new_cov (..., N, N)), f32; a leading
+    stream axis batches every matmul."""
+    m = h.shape[-2]
+    n = h.shape[-1]
+    ph_t = cov @ h.transpose(-1, -2)                   # (..., N, M)
     eye_m = torch.eye(m, dtype=cov.dtype, device=cov.device)
-    s = h @ ph_t + eye_m * r_diag[None, :]
-    norm1 = torch.max(torch.sum(torch.abs(s), dim=0))
-    x = s / (norm1 * norm1)
+    s = h @ ph_t + eye_m * r_diag[..., None, :]
+    norm1 = torch.amax(torch.sum(torch.abs(s), dim=-2), dim=-1)
+    x = s / (norm1 * norm1)[..., None, None]
     for _ in range(ns_iters):
         x = x @ (2.0 * eye_m - s @ x)
-    gain = ph_t @ x                                    # (N, M)
-    inn = (gain @ resid[:, None])[:, 0]
+    gain = ph_t @ x                                    # (..., N, M)
+    inn = (gain @ resid[..., None])[..., 0]
     eye_n = torch.eye(n, dtype=cov.dtype, device=cov.device)
     i_kh = eye_n - gain @ h
-    joseph = (i_kh @ cov) @ i_kh.T
-    krk = (gain * r_diag[None, :]) @ gain.T
+    joseph = (i_kh @ cov) @ i_kh.transpose(-1, -2)
+    krk = (gain * r_diag[..., None, :]) @ gain.transpose(-1, -2)
     new_cov = joseph + krk
-    return inn, 0.5 * (new_cov + new_cov.T)
+    return inn, 0.5 * (new_cov + new_cov.transpose(-1, -2))
 
 
 def fused_update(cov: torch.Tensor, h: torch.Tensor, r_diag: torch.Tensor,
                  resid: torch.Tensor, ns_iters: int = 20):
-    """Fused gain/innovation/Joseph update, f32. Returns (innovation
-    (N,), new_cov (N, N)). A CUDA tensor launches
-    ``csrc/mekf_update.cu``; a CPU tensor runs `fused_update_plain`."""
-    n = cov.shape[0]
-    m = h.shape[0]
-    if cov.shape != (n, n) or h.shape != (m, n) or r_diag.shape != (m,) \
-            or resid.shape != (m,):
+    """Fused gain/innovation/Joseph update, f32: cov (N, N), h (M, N),
+    r_diag and resid (M,), or each with a leading stream axis (S, ...).
+    Returns (innovation (..., N), new_cov (..., N, N)). A CUDA tensor
+    launches ``csrc/mekf_update.cu`` once for all S streams; a CPU tensor
+    runs `fused_update_plain`."""
+    lead = cov.shape[:-2]
+    n = cov.shape[-1]
+    m = h.shape[-2]
+    if len(lead) > 1 or cov.shape != (*lead, n, n) \
+            or h.shape != (*lead, m, n) or r_diag.shape != (*lead, m) \
+            or resid.shape != (*lead, m):
         raise ValueError(f"fused_update: cov {tuple(cov.shape)}, h "
                          f"{tuple(h.shape)}, r {tuple(r_diag.shape)}, "
                          f"resid {tuple(resid.shape)}")
@@ -62,29 +71,36 @@ fused_update.launches = 0
 
 def _launch(cov, h, r_diag, resid, ns_iters):
     args = [t.contiguous() for t in (cov, h, r_diag, resid)]
+    batched = cov.dim() == 3
     for name, t, nd in zip(("cov", "h", "r_diag", "resid"), args,
                            (2, 2, 1, 1)):
-        _build.check_cuda(name, t, torch.float32, nd)
+        _build.check_cuda(name, t, torch.float32, nd + batched)
         if t.device != cov.device:
             raise ValueError(f"fused_update: {name} on {t.device}, cov on "
                              f"{cov.device}")
     cov, h, r_diag, resid = args
-    n = cov.shape[0]
-    m = h.shape[0]
+    streams = cov.shape[0] if batched else 1
+    n = cov.shape[-1]
+    m = h.shape[-2]
     size = _build.function("mekf_update_scratch_floats",
                            [ctypes.c_int, ctypes.c_int])
     size.restype = ctypes.c_longlong
-    scratch = torch.empty(size(n, m), dtype=torch.float32,
+    scratch = torch.empty(streams * size(n, m), dtype=torch.float32,
                           device=cov.device)
-    inn = torch.empty(n, dtype=torch.float32, device=cov.device)
+    inn = torch.empty(cov.shape[:-1], dtype=torch.float32,
+                      device=cov.device)
     new_cov = torch.empty_like(cov)
-    fn = _build.function("mekf_fused_update", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p])
+    ptrs = [ctypes.c_void_p] * 7
+    if batched:
+        fn = _build.function("mekf_fused_update_batched", ptrs + [
+            ctypes.c_int] * 4 + [ctypes.c_void_p])
+        dims = (streams, n, m, ns_iters)
+    else:
+        fn = _build.function("mekf_fused_update", ptrs + [
+            ctypes.c_int] * 3 + [ctypes.c_void_p])
+        dims = (n, m, ns_iters)
     _build.call(fn, _build.ptr(cov), _build.ptr(h), _build.ptr(r_diag),
                 _build.ptr(resid), _build.ptr(inn), _build.ptr(new_cov),
-                _build.ptr(scratch), n, m, ns_iters, _build.stream())
+                _build.ptr(scratch), *dims, _build.stream())
     fused_update.launches += 1
     return inn, new_cov

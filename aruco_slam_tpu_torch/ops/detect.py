@@ -32,9 +32,11 @@ detect-every-K schedule frame by frame. Where JAX picks the branch with
 `lax.cond`, the port tests the predicate on the host (one device sync
 per frame) and runs only the branch taken.
 
-Not ported yet: LRU slot recycling (``slot_max_age > 0``) and the fleet
-streaming forms (``streams=``, `detect_or_track_batch*`, rescue
-cohorts).
+Slot assignment takes an optional leading stream axis (the fleet's S
+tables advance together, T steps per chunk whatever S), and with
+``slot_max_age > 0`` recycles the stalest slot once the table is full.
+Not ported yet: the fleet streaming forms (``streams=``,
+`detect_or_track_batch*`, rescue cohorts).
 """
 
 from __future__ import annotations
@@ -476,61 +478,86 @@ def detect_markers(image: torch.Tensor, cfg: DetectorConfig
     return Detections(*(x[0] for x in det)) if single else det
 
 
-def slot_table_init(capacity: int, device=None) -> torch.Tensor:
-    """Fresh id->slot table: (C,) int32 marker id per slot, -1 = free."""
-    return torch.full((capacity,), -1, dtype=torch.int32, device=device)
+def slot_table_init(capacity: int, device=None,
+                    streams: int | None = None) -> torch.Tensor:
+    """Fresh id->slot table: (C,) int32 marker id per slot, -1 = free
+    (leading (S,) axis with ``streams``)."""
+    lead = () if streams is None else (streams,)
+    return torch.full((*lead, capacity), -1, dtype=torch.int32,
+                      device=device)
 
 
 def _assign_slots_impl(table_ids, canon, cand_ids, decoded, top_score,
-                       max_age: int = 0):
-    """One frame of slot assignment (see the JAX `assign_slots`): one
-    winner per id (highest score, ties to the lower candidate), known
-    ids land in their slot, unseen ids claim free slots in first-
-    occurrence order, and new ids beyond the free slots drop."""
-    if max_age:
-        raise NotImplementedError("LRU slot recycling (slot_max_age > 0):"
-                                  " not ported yet")
-    c = table_ids.shape[0]
-    k = canon.shape[0]
+                       last_seen=None, frame_idx=None, max_age: int = 0):
+    """One frame of slot assignment (see the JAX `assign_slots` and
+    `assign_slots_lru`), on one stream or on S streams at once (a
+    leading axis on every argument but ``frame_idx``): one winner per id
+    (highest score, ties to the lower candidate), known ids land in
+    their slot, unseen ids claim free slots in first-occurrence order.
+    With ``max_age`` > 0, once the free slots are gone a new id evicts
+    the stalest slot unobserved for more than ``max_age`` frames (ties
+    to the lowest slot; a slot observed this frame is never evicted);
+    new ids beyond the claimable slots drop."""
+    c = table_ids.shape[-1]
+    k = canon.shape[-3]
     dev = canon.device
     ok = decoded & (cand_ids >= 0)
     idx = torch.arange(k, device=dev)
-    same = ok[:, None] & ok[None, :] \
-        & (cand_ids[:, None] == cand_ids[None, :])          # (K, K)
-    occ = torch.amin(torch.where(same, idx[None, :], k), dim=1)
-    better = same & ((top_score[None, :] > top_score[:, None])
-                     | ((top_score[None, :] == top_score[:, None])
+    same = ok[..., :, None] & ok[..., None, :] \
+        & (cand_ids[..., :, None] == cand_ids[..., None, :])  # (..., K, K)
+    occ = torch.amin(torch.where(same, idx, k), dim=-1)
+    better = same & ((top_score[..., None, :] > top_score[..., :, None])
+                     | ((top_score[..., None, :] == top_score[..., :, None])
                         & (idx[None, :] < idx[:, None])))
-    winner = ok & ~better.any(dim=1)
+    winner = ok & ~better.any(dim=-1)
 
-    known = cand_ids[:, None] == table_ids[None, :]         # (K, C)
-    has_known = known.any(dim=1)
+    known = cand_ids[..., :, None] == table_ids[..., None, :]  # (..., K, C)
+    has_known = known.any(dim=-1)
     neww = winner & ~has_known
-    rank = torch.sum(neww[None, :] & (occ[None, :] < occ[:, None]), dim=1)
+    rank = torch.sum(neww[..., None, :] & (occ[..., None, :]
+                                           < occ[..., :, None]), dim=-1)
     free = table_ids < 0
-    free_rank = torch.cumsum(free.to(torch.int64), 0) - 1
-    claim_ok = neww & (rank < free.sum())
-    slot_new = torch.argmax((free[None, :] & (free_rank[None, :]
-                                              == rank[:, None])
-                             ).to(torch.int32), dim=1)
-    slot = torch.where(has_known,
-                       torch.argmax(known.to(torch.int32), dim=1), slot_new)
+    if max_age:
+        # claim order: free slots first (in index order), then evictable
+        # slots stalest-first — the JAX int32 key and lax.top_k (ties to
+        # the lowest slot: a stable descending sort)
+        receiving = (known & winner[..., :, None]).any(dim=-2)
+        age = torch.as_tensor(frame_idx, dtype=torch.int32,
+                              device=dev) - last_seen
+        stale = ~free & ~receiving & (age > max_age)
+        big = 1 << 29
+        key = torch.where(free, 2 * big, torch.where(
+            stale, torch.clamp(age, max=big - 1), -1)).to(torch.int32)
+        _, order = _top_k_low_index(key, c)
+        n_claim = (free | stale).sum(dim=-1, keepdim=True)
+        claim_ok = neww & (rank < n_claim)
+        slot_new = torch.gather(order, -1, torch.clamp(rank, 0, c - 1))
+    else:
+        free_rank = torch.cumsum(free.to(torch.int64), -1) - 1
+        claim_ok = neww & (rank < free.sum(dim=-1, keepdim=True))
+        slot_new = torch.argmax(
+            (free[..., None, :] & (free_rank[..., None, :]
+                                   == rank[..., :, None])).to(torch.int32),
+            dim=-1)
+    slot = torch.where(has_known, torch.argmax(known.to(torch.int32), dim=-1),
+                       slot_new)
     placed = (winner & has_known) | claim_ok
-    onehot = placed[:, None] & (torch.arange(c, device=dev)[None, :]
-                                == slot[:, None])           # (K, C)
-    claim_oh = onehot & claim_ok[:, None]
-    claimed = claim_oh.any(dim=0)
+    onehot = placed[..., None] & (torch.arange(c, device=dev)
+                                  == slot[..., None])       # (..., K, C)
+    claim_oh = onehot & claim_ok[..., None]
+    claimed = claim_oh.any(dim=-2)
     evicted = claimed & (table_ids >= 0)
-    dropped = (neww & ~claim_ok).sum().to(torch.int32)
+    dropped = (neww & ~claim_ok).sum(dim=-1).to(torch.int32)
     table_ids = torch.where(
         claimed,
-        torch.sum(torch.where(claim_oh, cand_ids[:, None], 0), dim=0
+        torch.sum(torch.where(claim_oh, cand_ids[..., None], 0), dim=-2
                   ).to(table_ids.dtype),
         table_ids)
-    slot_mask = onehot.any(dim=0)
-    slot_c = torch.where(
-        slot_mask[:, None, None],
-        canon[torch.argmax(onehot.to(torch.int32), dim=0)], 0.0)
+    slot_mask = onehot.any(dim=-2)
+    src = torch.argmax(onehot.to(torch.int32), dim=-2)         # (..., C)
+    slot_c = torch.gather(canon, -3, src[..., None, None].expand(
+        *src.shape, *canon.shape[-2:]))
+    slot_c = torch.where(slot_mask[..., None, None], slot_c, 0.0)
     return slot_c, slot_mask, table_ids, evicted, dropped
 
 
@@ -556,11 +583,14 @@ def detect_markers_mapped(image: torch.Tensor, cfg: DetectorConfig,
 
 def assign_slots_lru(table_ids, last_seen, frame_idx, max_age: int,
                      canon, cand_ids, decoded, top_score):
-    """Slot assignment with saturation accounting. Returns (corners
-    (C, 4, 2), mask (C,), table_ids, last_seen, evicted (C,), dropped
-    () int32)."""
+    """Slot assignment with LRU recycling (``max_age`` > 0) and
+    saturation accounting, for one stream or S at once. Returns (corners
+    (..., C, 4, 2), mask (..., C), table_ids, last_seen, evicted (...,
+    C) — slots reassigned this frame, whose landmark the filter resets,
+    dropped (...) int32 — new ids that found no slot)."""
     slot_c, slot_mask, table_ids, evicted, dropped = _assign_slots_impl(
-        table_ids, canon, cand_ids, decoded, top_score, max_age=max_age)
+        table_ids, canon, cand_ids, decoded, top_score,
+        last_seen=last_seen, frame_idx=frame_idx, max_age=max_age)
     last_seen = torch.where(
         slot_mask, torch.as_tensor(frame_idx, dtype=torch.int32,
                                    device=last_seen.device), last_seen)
@@ -574,30 +604,39 @@ def detect_candidates_batch(images: torch.Tensor, cfg: DetectorConfig):
 
 def assign_sequence_lru(cfg: DetectorConfig, table_ids, last_seen,
                         frame0: int, canon, cand_ids, decoded, top_score):
-    """Sequential LRU slot assignment over a (T, ...) candidate
-    sequence. Returns (corners (T, C, 4, 2), mask (T, C), reset (T, C),
-    ids_seq (T, C), table_ids, last_seen, dropped (T,))."""
+    """Sequential LRU slot assignment over a (T, ...) candidate sequence
+    of one stream, or an (S, T, ...) one of S streams with (S, C)
+    tables: T steps whatever S. Returns (corners (..., T, C, 4, 2), mask
+    (..., T, C), reset (..., T, C), ids_seq (..., T, C), table_ids,
+    last_seen, dropped (..., T))."""
+    axis = table_ids.dim() - 1
     outs = []
-    for i in range(canon.shape[0]):
+    for i in range(canon.shape[axis]):
         sc, sm, table_ids, last_seen, ev, dr = assign_slots_lru(
             table_ids, last_seen, frame0 + i, cfg.slot_max_age,
-            canon[i], cand_ids[i], decoded[i], top_score[i])
+            *(x.select(axis, i) for x in (canon, cand_ids, decoded,
+                                          top_score)))
         outs.append((sc, sm, ev, table_ids, dr))
     slot_c, slot_m, reset, ids_seq, dropped = (
-        torch.stack([o[j] for o in outs]) for j in range(5))
+        torch.stack([o[j] for o in outs], axis) for j in range(5))
     return slot_c, slot_m, reset, ids_seq, table_ids, last_seen, dropped
 
 
 def detect_markers_batch_lru(images: torch.Tensor, cfg: DetectorConfig,
                              table_ids: torch.Tensor,
                              last_seen: torch.Tensor, frame0: int):
-    """Mapped detection over a (T, H, W) chunk of one stream: the
-    candidate pipeline over the batch, then the sequential id->slot
-    assignment from absolute frame index ``frame0``. Returns (corners
-    (T, C, 4, 2), mask (T, C), reset (T, C), ids_seq (T, C), table_ids,
-    last_seen, dropped (T,))."""
-    return assign_sequence_lru(cfg, table_ids, last_seen, frame0,
-                               *detect_candidates_batch(images, cfg))
+    """Mapped detection over a (T, H, W) chunk of one stream, or an (S,
+    T, H, W) chunk of S streams with (S, C) tables and last-seen frames:
+    the candidate pipeline over all S·T frames as one batch, then the
+    sequential id->slot assignment from absolute frame index ``frame0``
+    (all streams at once). Returns (corners (..., T, C, 4, 2), mask (...,
+    T, C), reset (..., T, C), ids_seq (..., T, C), table_ids, last_seen,
+    dropped (..., T))."""
+    lead = images.shape[:-2]
+    cands = detect_candidates_batch(images.reshape(-1, *images.shape[-2:]),
+                                    cfg)
+    cands = [x.reshape(*lead, *x.shape[1:]) for x in cands]
+    return assign_sequence_lru(cfg, table_ids, last_seen, frame0, *cands)
 
 
 def _median(x: torch.Tensor, dim: int) -> torch.Tensor:

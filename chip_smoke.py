@@ -15,7 +15,10 @@ non-zero, and no result line is printed):
                 tolerance; CUDA-event times (median of 20 after
                 warm-up): B1 labeling, B2 subpixel refinement (the
                 detector's schedule and the tracker's three), B3 MEKF
-                update, B4 stencil-only labeling, B5 patch-fed
+                update (point mode N = 201, M = 48; rotation mode N =
+                393, M = 112; and 8 streams in one batched launch
+                against the plain version and against 8 single-stream
+                launches), B4 stencil-only labeling, B5 patch-fed
                 refinement.
 4. main path  — 32 rendered 1920x1080 frames through
                 `aruco_slam_tpu_torch.apps.run_slam.main` (robust
@@ -32,6 +35,19 @@ non-zero, and no result line is printed):
                 frames, cold (which frames took a full sweep, launch
                 counts, ATE, tracked-frame detections against the main
                 run) and warm (frames/s beside the main path's).
+8. rotations path — `run_slam.main(... --filter mekf_rotations)` on the
+                same frames, cold (ATE, one update launch per frame,
+                unit landmark quaternions) and warm (frames/s).
+9. recycling path — a 720x405 sequence whose marker cohort changes
+                mid-run (ids 0-4, then 20-24) at `--capacity 5
+                --slot-max-age 2`: second-cohort ids in the map, the
+                table's resets and drops on the card equal the CPU's.
+10. fleet path — `run_slam.main(["--input", "s0.npz,...,s7.npz", ...])`:
+                8 1080p streams (four distinct 32-frame sequences, each
+                twice), cold (each stream within 1e-4 m of its
+                single-stream run, duplicates identical, B1/B2/B3
+                launched, B3 once per frame) and warm (aggregate
+                frames/s, peak device memory).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX and nothing
@@ -64,6 +80,10 @@ B4_TOL = 0            # labels are integers: bit-identical
 B5_TOL = 2e-3         # px: B2's loop on gathered patches, as B2
 SIZE = (1920, 1080)   # frame width, height
 TRACK_EVERY = 8       # the streaming path's K
+STREAMS = 8           # the fleet path's streams: 4 sequences, each twice
+FLEET_TOL = 1e-4      # m, a fleet stream against its single-stream run
+                      # (tests/test_io_apps.py's bound for the JAX fleet)
+MAX_OBS = "16"        # shared --max-obs of the fleet and its references
 # the detector's subpixel schedule, the tracker's three pulls and
 # detect.refine_corners' default
 DETECTOR_SCHED = ((6, 6), (3, 4))
@@ -282,9 +302,11 @@ def _b5(frames, corners_true, mask_true, rng, dev):
             "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1]}
 
 
-def _capture_update_inputs(corners, mask, cam, marker_size):
+def _capture_update_inputs(corners, mask, cam, marker_size,
+                           rotations: bool = False):
     """The fused update's inputs at every frame of a short filter run
-    on the CPU (the run_slam MEKF settings, N = 201, M = 48)."""
+    on the CPU (the run_slam MEKF settings: N = 201, M = 48 in point
+    mode, N = 393, M = 112 with rotations and the PnP ambiguity)."""
     import torch
     from aruco_slam_tpu_torch.apps import run_slam
     from aruco_slam_tpu_torch.config import SlamAppConfig
@@ -293,6 +315,7 @@ def _capture_update_inputs(corners, mask, cam, marker_size):
     cpu = torch.device("cpu")
     res = pnp.solve_square_pnp(cam.to(device=cpu), torch.tensor(
         corners, dtype=torch.float32), marker_size)
+    amb = (res.err / torch.clamp(res.err2, min=1e-9)).numpy()
     captured = []
     real = cuda_mekf.fused_update
 
@@ -304,44 +327,87 @@ def _capture_update_inputs(corners, mask, cam, marker_size):
     try:
         run_slam.run_mekf(SlamAppConfig(input=""), list(range(len(mask))),
                           res.t_cl.numpy(), res.q_cl.numpy(), mask, cam,
-                          cpu)
+                          cpu, with_rotations=rotations, ambiguity=amb)
     finally:
         cuda_mekf.fused_update = real
     return captured
 
 
-def _b3(captured, dev):
+def _b3_err(got, want) -> float:
+    """Largest difference relative to the largest entry (at least 1),
+    over the innovation and the covariance."""
+    return max(float((g - w).abs().max() / max(1.0, float(w.abs().max())))
+               for g, w in zip(got, want))
+
+
+def _b3(captured, captured_rot, dev):
     import numpy as np
     import torch
     from aruco_slam_tpu_torch.filters import cuda_mekf
-    cov, h, r, resid = (a.to(dev) for a in captured[len(captured) // 2])
+    mid = len(captured) // 2
+    cov, h, r, resid = (a.to(dev) for a in captured[mid])
     n = 54  # the camera block + 16 landmarks (motion_model "none")
-    cases = [(cov, h, r, resid),
-             (cov[:n, :n].contiguous(), h[:, :n].contiguous(), r, resid)]
+    cases = [("point", (cov, h, r, resid)),
+             ("point, cut", (cov[:n, :n].contiguous(),
+                             h[:, :n].contiguous(), r, resid)),
+             ("rotations", tuple(a.to(dev) for a in captured_rot[mid]))]
     worst = 0.0
-    timing = None
-    for args in cases:
-        inn, pn = cuda_mekf.fused_update(*args)
-        inn_p, pn_p = cuda_mekf.fused_update_plain(*args)
+    shapes = []
+    for tag, args in cases:
+        got = cuda_mekf.fused_update(*args)
+        want = cuda_mekf.fused_update_plain(*args)
         torch.cuda.synchronize()
-        err = max(float((inn - inn_p).abs().max()
-                        / max(1.0, float(inn_p.abs().max()))),
-                  float((pn - pn_p).abs().max()
-                        / max(1.0, float(pn_p.abs().max()))))
+        err = _b3_err(got, want)
         worst = max(worst, err)
         ms = cuda_ms(lambda: cuda_mekf.fused_update(*args))
         plain = cuda_ms(lambda: cuda_mekf.fused_update_plain(*args))
-        log(f"[B3] fused_update N={args[0].shape[0]} M={args[1].shape[0]}"
-            f": max |kernel - plain| {err:.3e} (tol {B3_TOL}); kernel "
-            f"{ms:.3f} ms, plain {plain:.3f} ms")
+        shape = f"N={args[0].shape[0]} M={args[1].shape[0]}"
+        log(f"[B3] fused_update {shape} ({tag}): max |kernel - plain| "
+            f"{err:.3e} (tol {B3_TOL}); kernel {ms:.3f} ms, plain "
+            f"{plain:.3f} ms")
         if not np.isfinite(err) or err > B3_TOL:
-            raise AssertionError(f"B3 differs from its plain version: {err}")
-        if timing is None:
-            timing = (ms, plain)
+            raise AssertionError(f"B3 differs from its plain version at "
+                                 f"{shape}: {err}")
+        shapes.append({"shape": shape, "ms": ms, "plain_ms": plain,
+                       "max_abs_err": err})
+    # the last STREAMS frames of the point-mode run as STREAMS streams in
+    # one launch (the batched entry point), against the batched plain
+    # chain and against one single-stream launch each
+    frames = captured[-STREAMS:]
+    batch = [torch.stack([f[j] for f in frames]).to(dev) for j in range(4)]
+    got = cuda_mekf.fused_update(*batch)
+    want = cuda_mekf.fused_update_plain(*batch)
+    singles = [cuda_mekf.fused_update(*(a[i] for a in batch))
+               for i in range(STREAMS)]
+    torch.cuda.synchronize()
+    err = _b3_err(got, want)
+    vs_single = max(float((got[j][i] - singles[i][j]).abs().max())
+                    for i in range(STREAMS) for j in range(2))
+    ms = cuda_ms(lambda: cuda_mekf.fused_update(*batch))
+    plain = cuda_ms(lambda: cuda_mekf.fused_update_plain(*batch))
+    singles_ms = cuda_ms(lambda: [cuda_mekf.fused_update(
+        *(a[i] for a in batch)) for i in range(STREAMS)])
+    shape = f"S={STREAMS} N={batch[0].shape[1]} M={batch[1].shape[1]}"
+    log(f"[B3] fused_update batched {shape}: max |kernel - plain| "
+        f"{err:.3e} (tol {B3_TOL}); max |batched - single launches| "
+        f"{vs_single:.3e} (bit-equal expected); kernel {ms:.3f} ms, plain "
+        f"{plain:.3f} ms, {STREAMS} single launches {singles_ms:.3f} ms")
+    # (a CPU tensor runs the plain chain, whose batched matmuls sum in
+    # another order than single ones: only the kernel is bit-equal)
+    exact = dev.type == "cuda"
+    if not np.isfinite(err) or err > B3_TOL or (exact and vs_single != 0.0):
+        raise AssertionError(f"batched B3 at {shape}: {err} against plain, "
+                             f"{vs_single} against single launches")
+    worst = max(worst, err)
+    shapes.append({"shape": shape, "entry": "mekf_fused_update_batched",
+                   "ms": ms, "plain_ms": plain,
+                   "single_launches_ms": singles_ms, "max_abs_err": err,
+                   "max_abs_err_vs_single": vs_single})
     return {"name": "fused_update", "route": "cuda",
             "source": "aruco_slam_tpu_torch/csrc/mekf_update.cu",
             "replaces": "aruco_slam_tpu/filters/pallas_mekf.py:40",
-            "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1]}
+            "max_abs_err": worst, "ms": shapes[0]["ms"],
+            "plain_ms": shapes[0]["plain_ms"], "shapes": shapes}
 
 
 def _wrappers():
@@ -544,6 +610,187 @@ def phase_streaming(argv, gt_t, main_res, main_fps: float, smi: str):
     return launches
 
 
+def phase_rotations(argv, gt_t, main_fps: float, smi: str):
+    """run_slam --filter mekf_rotations: ATE, one update launch per
+    frame, finite unit landmark quaternions; warm frames/s."""
+    import torch
+    from aruco_slam_tpu_torch.apps import run_slam
+    argv = [*argv, "--filter", "mekf_rotations"]
+    final = []
+    real = run_slam.mekf_scan
+
+    def recording(cfg, state, obs):
+        out = real(cfg, state, obs)
+        final.append(out[0])
+        return out
+
+    _reset_counts()
+    run_slam.mekf_scan = recording
+    try:
+        _run_slam(argv, gt_t, "rotations")
+    finally:
+        run_slam.mekf_scan = real
+    launches = _counts()
+    log(f"[rotations] launches in the run: {launches}")
+    _require(launches, "rotations path", ("flood_scan_labels",
+                                          "refine_corners", "fused_update"))
+    if launches["fused_update"] != len(gt_t):
+        raise AssertionError(f"rotations: {launches['fused_update']} update "
+                             f"launches for {len(gt_t)} frames")
+    quats = final[-1].lm[:, 3:7]
+    norm_err = float((torch.linalg.vector_norm(quats, dim=-1) - 1).abs().max())
+    log(f"[rotations] {int(final[-1].active.sum())} landmarks; max "
+        f"| |q| - 1 | over the landmark quaternions {norm_err:.3e}")
+    if not torch.isfinite(quats).all() or norm_err > 1e-5:
+        raise AssertionError("rotations: landmark quaternions not finite "
+                             "and unit")
+    fps = _warm(argv, len(gt_t), "rotations", smi)
+    log(f"[rotations] warm {fps:.2f} frames/s vs {main_fps:.2f} frames/s "
+        "for the main path, same call")
+    return launches
+
+
+def phase_recycling(tmp: Path, dev):
+    """The two-cohort sequence of tests/test_recycling.py (12 frames at
+    720x405, ids 0-4 then 20-24) through run_slam at --capacity 5
+    --slot-max-age 2: second-cohort ids in the map, and the id->slot
+    table's per-frame resets, drops and ids on the card equal to the
+    CPU's (the plain path the tests hold to the JAX package)."""
+    import numpy as np
+    import torch
+    from aruco_slam_tpu_torch.apps import run_slam
+    from aruco_slam_tpu_torch.bench import render, synthetic
+    from aruco_slam_tpu_torch.core import camera as cam_mod
+    from aruco_slam_tpu_torch.io import load_map, save_npz
+    from aruco_slam_tpu_torch.ops import detect
+    k = np.array([[530.0, 0.0, 360.0], [0.0, 530.0, 202.0],
+                  [0.0, 0.0, 1.0]])
+    cam = cam_mod.CameraModel.from_matrix(k, np.zeros(5))
+    parts = []
+    for seed, offset in ((0, 0), (1, 20)):
+        scene = synthetic.make_wall_scene(num_markers=5, seed=seed)
+        traj = synthetic.make_orbit_trajectory(num_frames=6, seed=seed + 1)
+        parts.append((render.render_sequence(
+            scene, traj, cam, image_size=(720, 405),
+            marker_ids=np.arange(5) + offset), traj))
+    (ims_a, tr_a), (ims_b, tr_b) = parts
+    images = np.concatenate([ims_a, ims_b])
+    npz = tmp / "cohorts.npz"
+    save_npz(npz, images=images,
+             times=np.concatenate([tr_a.times,
+                                   tr_a.times[-1] + 0.04 + tr_b.times]),
+             gt_cam_t=np.concatenate([tr_a.cam_t, tr_b.cam_t]),
+             camera_matrix=k, dist_coeffs=np.zeros(5),
+             marker_size=np.float64(0.16))
+    _reset_counts()
+    res = run_slam.main(["--input", str(npz), "--platform", PLATFORM,
+                         "--capacity", "5", "--slot-max-age", "2",
+                         "--trajectory", str(tmp / "cohorts_traj.txt"),
+                         "--map", str(tmp / "cohorts_map.txt")])
+    launches = _counts()
+    ids = load_map(res.map_file)[0]
+    log(f"[recycling] launches in the run: {launches}; map ids "
+        f"{sorted(ids.tolist())}")
+    _require(launches, "recycling path", ("flood_scan_labels",
+                                          "refine_corners", "fused_update"))
+    if not set(ids.tolist()) & set(range(20, 25)):
+        raise AssertionError("recycling: no second-cohort id in the map")
+    if not np.isfinite(res.cam_traj).all():
+        raise AssertionError("recycling: non-finite trajectory")
+    cfg = detect.DetectorConfig(capacity=5, slot_max_age=2)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        o = detect.detect_markers_batch_lru(
+            torch.from_numpy(images).to(d), cfg, detect.slot_table_init(5, d),
+            torch.zeros(5, dtype=torch.int32, device=d), 0)
+        out[d.type] = [x.cpu().numpy() for x in o[1:]]
+    names = ("mask", "reset", "ids_seq", "table", "last_seen", "dropped")
+    differ = [n for n, a, b in zip(names, out[dev.type], out["cpu"])
+              if not np.array_equal(a, b)]
+    log(f"[recycling] resets per frame {out['cpu'][1].sum(1).tolist()}, "
+        f"sightings without a slot per frame {out['cpu'][5].tolist()}, "
+        f"final table {out['cpu'][3].tolist()}; card vs CPU differ in "
+        f"{differ or 'nothing'}")
+    if differ:
+        raise AssertionError(f"recycling: the card's table differs from the "
+                             f"CPU's in {differ}")
+    return launches
+
+
+def phase_fleet(tmp: Path, seqs, main_fps: float, smi: str):
+    """run_slam --input s0.npz,...: STREAMS streams, each of the distinct
+    sequences twice. Cold: each stream within FLEET_TOL of its own
+    single-stream run with the same map ids, duplicates identical, B1,
+    B2 and B3 launched, B3 once per frame. Warm: aggregate frames/s
+    (streams x frames over wall time) and peak device memory."""
+    import numpy as np
+    import torch
+    from aruco_slam_tpu_torch.apps import run_slam
+    from aruco_slam_tpu_torch.io import load_map, save_npz
+    paths = []
+    for i, (frames, times, gt_t, k, dist) in enumerate(seqs):
+        paths.append(tmp / f"s{i}.npz")
+        save_npz(paths[-1], times=times, images=frames, gt_cam_t=gt_t,
+                 camera_matrix=k, dist_coeffs=dist,
+                 marker_size=np.float64(0.16))
+    inputs = paths * (STREAMS // len(paths))
+    argv = ["--input", ",".join(map(str, inputs)), "--platform", PLATFORM,
+            "--max-obs", MAX_OBS, "--trajectory", str(tmp / "fleet.txt"),
+            "--map", str(tmp / "fleet_map.txt")]
+    _reset_counts()
+    fleet = run_slam.main(argv)
+    launches = _counts()
+    tlen = len(seqs[0][1])
+    log(f"[fleet] launches in the run: {launches}")
+    _require(launches, "fleet path", ("flood_scan_labels", "refine_corners",
+                                      "fused_update"))
+    if launches["fused_update"] != tlen:
+        raise AssertionError(f"fleet: {launches['fused_update']} update "
+                             f"launches for {tlen} frames of {STREAMS} "
+                             "streams (one per frame expected)")
+    worst = 0.0
+    for i, path in enumerate(paths):
+        one = run_slam.main(["--input", str(path), "--platform", PLATFORM,
+                             "--max-obs", MAX_OBS,
+                             "--trajectory", str(tmp / f"one{i}.txt"),
+                             "--map", str(tmp / f"one{i}_map.txt")])
+        for j in range(i, STREAMS, len(paths)):
+            err = float(np.abs(fleet[j].cam_traj - one.cam_traj).max())
+            worst = max(worst, err)
+            same_ids = np.array_equal(load_map(fleet[j].map_file)[0],
+                                      load_map(one.map_file)[0])
+            if not err <= FLEET_TOL or not same_ids:
+                raise AssertionError(f"fleet stream {j}: {err} m from its "
+                                     f"single-stream run, map ids equal "
+                                     f"{same_ids}")
+        twin = fleet[i + len(paths)]
+        if not (np.array_equal(fleet[i].cam_traj, twin.cam_traj)
+                and Path(fleet[i].map_file).read_text()
+                == Path(twin.map_file).read_text()):
+            raise AssertionError(f"fleet: streams {i} and {i + len(paths)} "
+                                 "(the same input) differ")
+    ates = [None if r.ate is None else round(r.ate, 4) for r in fleet]
+    log(f"[fleet] {STREAMS} streams x {tlen} frames: max |fleet - single| "
+        f"{worst:.3e} m (tol {FLEET_TOL}); duplicate streams identical; "
+        f"ATE per stream {ates}; detections per stream "
+        f"{[int(r.obs_mask.sum()) for r in fleet]}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = run_slam.main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    fps = STREAMS * tlen / dt
+    peak = warm[0].seconds.get("peak_bytes")
+    log(f"[fleet] warm run: {STREAMS} x {tlen} frames {SIZE[0]}x{SIZE[1]} "
+        f"in {dt:.3f} s = {fps:.2f} frames/s aggregate ({fps / STREAMS:.2f} "
+        f"per stream; front end {warm[0].seconds['front_end']:.3f} s, filter "
+        f"{warm[0].seconds['filter']:.3f} s; peak device memory "
+        f"{'not measured' if peak is None else f'{peak / 2**30:.2f} GiB'}) "
+        f"vs {main_fps:.2f} frames/s for the single-stream main path, on "
+        f"{smi}")
+    return launches
+
+
 def main() -> int:
     import torch
     name, smi = phase_device()
@@ -558,9 +805,11 @@ def main() -> int:
     dev = torch.device(PLATFORM)
     rng = np.random.default_rng(SEED)
     app = SlamAppConfig(input="")
+    # the run_slam camera at 1920x1080 (scaled with a smaller SIZE)
+    k = np.asarray(app.camera_matrix) * (SIZE[0] / 1920.0)
+    k[2, 2] = 1.0
     cam = cam_mod.CameraModel.from_matrix(
-        np.asarray(app.camera_matrix, np.float32),
-        np.asarray(app.dist_coeffs, np.float32))
+        np.asarray(k, np.float32), np.asarray(app.dist_coeffs, np.float32))
     scene = synthetic.make_wall_scene(num_markers=10, seed=SEED)
     # the first chunk of the default 300-frame (10 s, 30 fps) orbit:
     # hand-held video-rate motion (a whole orbit squeezed into 32 frames
@@ -578,14 +827,23 @@ def main() -> int:
     kernels = [_b1(rng, dev), _b2(frames, corners, mask, rng, dev)]
     captured = _capture_update_inputs(corners, mask, cam,
                                       scene.marker_size)
-    kernels += [_b3(captured, dev), _b4(rng, dev),
+    captured_rot = _capture_update_inputs(corners, mask, cam,
+                                          scene.marker_size, rotations=True)
+    kernels += [_b3(captured, captured_rot, dev), _b4(rng, dev),
                 _b5(frames, corners, mask, rng, dev)]
+    # the fleet's second scene: another wall (seed 1), the same orbit
+    t0 = time.perf_counter()
+    frames2 = render.render_sequence(
+        synthetic.make_wall_scene(num_markers=10, seed=SEED + 1), traj, cam,
+        image_size=SIZE)
+    log(f"[data] rendered the fleet's second scene {frames2.shape} in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     with tempfile.TemporaryDirectory() as tmp:
         npz = Path(tmp) / "seq.npz"
         save_npz(npz, times=traj.times, images=frames,
                  gt_cam_t=traj.cam_t, gt_cam_q=traj.cam_q,
-                 camera_matrix=np.asarray(app.camera_matrix),
+                 camera_matrix=k,
                  dist_coeffs=np.asarray(app.dist_coeffs),
                  marker_size=np.float64(scene.marker_size))
         argv = ["--input", str(npz), "--platform", PLATFORM,
@@ -598,6 +856,16 @@ def main() -> int:
             "refine_offsets": phase_refine_corners(frames, corners, mask,
                                                    rng, dev)}
         phase_streaming(argv, traj.cam_t, main_res, main_fps, smi)
+        phase_rotations(argv, traj.cam_t, main_fps, smi)
+        phase_recycling(Path(tmp), dev)
+        dist = np.asarray(app.dist_coeffs)
+        phase_fleet(Path(tmp), [
+            (f, traj.times, gt, k, dist)
+            for f, gt in ((frames, traj.cam_t),
+                          (frames[::-1], traj.cam_t[::-1]),
+                          (frames2, traj.cam_t),
+                          (frames2[::-1], traj.cam_t[::-1]))],
+            main_fps, smi)
     for k in kernels:
         k["launches"] = path_launches.get(k["name"], main_launches)[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -166,6 +166,78 @@ def test_fused_update_matches_plain(device):
     assert torch.equal(pn, pn.T)
 
 
+def _update_inputs(rng, device, n, m, streams=None):
+    lead = () if streams is None else (streams,)
+    a = rng.normal(size=(*lead, n, n)) / np.sqrt(n)
+    cov = a @ np.swapaxes(a, -1, -2) * 0.05 + 0.01 * np.eye(n)
+    return [torch.tensor(x, dtype=torch.float32, device=device) for x in (
+        cov, rng.normal(size=(*lead, m, n)) * 0.3,
+        rng.uniform(1e-3, 1e-2, (*lead, m)),
+        0.01 * rng.normal(size=(*lead, m)))]
+
+
+def _rel_err(got, want):
+    return (got - want).abs().max().item() / max(1.0,
+                                                 want.abs().max().item())
+
+
+@pytest.mark.parametrize("n,m", [(201, 48), (393, 112)])
+def test_fused_update_batched_matches_single_launches(device, n, m):
+    """Eight streams in one launch sequence: each stream's innovation and
+    covariance bit-equal to its own single-stream launch (the same
+    arithmetic, the stream in blockIdx), and within 1e-4 of the batched
+    plain version; one launch counted."""
+    args = _update_inputs(np.random.default_rng(n), device, n, m, 8)
+    before = cuda_mekf.fused_update.launches
+    inn, pn = cuda_mekf.fused_update(*args)
+    assert cuda_mekf.fused_update.launches == before + 1
+    inn_p, pn_p = cuda_mekf.fused_update_plain(*args)
+    assert _rel_err(inn, inn_p) <= 1e-4 and _rel_err(pn, pn_p) <= 1e-4
+    for i in range(8):
+        inn1, pn1 = cuda_mekf.fused_update(*(a[i] for a in args))
+        assert torch.equal(inn[i], inn1) and torch.equal(pn[i], pn1)
+
+
+def test_fused_update_rotation_size(device):
+    """B3 at rotation mode's size (N = 9 + 64·6 = 393, M = 16·7 = 112)
+    against its plain version: 1e-4 relative, symmetric."""
+    args = _update_inputs(np.random.default_rng(7), device, 393, 112)
+    inn, pn = cuda_mekf.fused_update(*args)
+    inn_p, pn_p = cuda_mekf.fused_update_plain(*args)
+    assert _rel_err(inn, inn_p) <= 1e-4 and _rel_err(pn, pn_p) <= 1e-4
+    assert torch.equal(pn, pn.T)
+
+
+def test_mekf_fleet_step_cuda_matches_cpu(device):
+    """Three rotation-mode filters stepping together on the card (one
+    update launch per frame) against the same on the CPU (plain
+    versions)."""
+    from aruco_slam_tpu_torch.filters import mekf as tm
+    from aruco_slam_tpu_torch.parallel import multi_slam as tms
+    rng = np.random.default_rng(2)
+    cfg = tm.MekfConfig(capacity=12, max_obs=5, with_rotations=True,
+                        motion_model="cv", pixel_sigma=1.0,
+                        r_uncertainty=0.005, q_uncertainty_cam=1.0,
+                        q_error_uncertainty_cam=1.0, q_uncertainty_lm=0.0)
+    t, s, c = 16, 3, 12
+    lm = rng.uniform([-1, -1, 2.5], [1, 1, 3.5], (c, 3))
+    t_cl = (lm[None, None] - np.linspace(0, 0.3, t)[None, :, None, None]
+            * np.array([1.0, 0, 0]) + rng.normal(0, 0.003, (s, t, c, 3)))
+    q = rng.normal(size=(s, t, c, 4)) * 0.02 + [1.0, 0, 0, 0]
+    mask = rng.random((s, t, c)) < 0.6
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        obs = tm.FrameObservations(*(torch.tensor(x, device=dev) for x in (
+            t_cl.astype(np.float32), q.astype(np.float32), mask)))
+        before = cuda_mekf.fused_update.launches
+        states = tms.stack_states([tm.init_state(cfg, device=dev)] * s)
+        _, traj = tms.batched_mekf_scan(cfg, states, obs)
+        out[dev.type] = (traj.cpu().numpy(),
+                         cuda_mekf.fused_update.launches - before)
+    assert out["cuda"][1] == t and out["cpu"][1] == 0
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], atol=2e-3)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(device):
     img = torch.zeros((1, 64, 64), dtype=torch.int16, device=device)
     with pytest.raises(ValueError):

@@ -299,11 +299,73 @@ def test_detect_markers_slot_is_id(rendered):
     assert np.abs(got.corners.numpy()[ids] - corners[1][ids]).max() < 1.5
 
 
-def test_slot_recycling_refused():
-    cand = torch.zeros((1, 4, 2))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        td.assign_slots_lru(td.slot_table_init(4),
-                            torch.zeros(4, dtype=torch.int32), 0, 5, cand,
-                            torch.zeros(1, dtype=torch.int64),
-                            torch.ones(1, dtype=torch.bool),
-                            torch.ones(1, dtype=torch.int64))
+def _cands(ids, k=8, score0=100):
+    """tests/test_recycling.py's synthetic decoded candidates, as numpy:
+    (canon, cand_ids, decoded, score); canon carries the id so that the
+    slot corners show which candidate landed where."""
+    cand_ids = np.full(k, -1, np.int32)
+    cand_ids[:len(ids)] = ids
+    decoded = cand_ids >= 0
+    score = np.where(decoded, score0, 0).astype(np.int32)
+    canon = np.broadcast_to(cand_ids[:, None, None], (k, 4, 2)).astype(
+        np.float32)
+    return canon, cand_ids, decoded, score
+
+
+def _assign_both(table, seen, frame, max_age, cands):
+    want = jd.assign_slots_lru(jnp.asarray(table), jnp.asarray(seen), frame,
+                               max_age, *(jnp.asarray(a) for a in cands))
+    got = td.assign_slots_lru(torch.tensor(table), torch.tensor(seen), frame,
+                              max_age, *(torch.tensor(a) for a in cands))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    return [g.numpy() for g in got]
+
+
+# tests/test_recycling.py TestAssignSlotsLru's cases: (table, last_seen,
+# frame, max_age, candidate ids)
+LRU_CASES = {
+    "fresh_full_table_drops": ([10, 11], [4, 4], 5, 3, [12]),
+    "evicts_stalest": ([10, 11, 12], [8, 2, 5], 10, 3, [77]),
+    "free_before_eviction": ([10, -1, 12], [0, 0, 0], 9, 3, [77]),
+    "observed_slot_protected": ([10, 11], [0, 5], 20, 3, [10, 77]),
+    "age_zero_counts_drops": ([5, -1, -1], [0, 0, 0], 50, 0,
+                              [5, 9, 9, 3, 4]),
+    "stale_ties_to_lowest_slot": ([3, 4, 5, 6], [1, 7, 1, 1], 30, 5,
+                                  [40, 41, 6]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LRU_CASES))
+def test_assign_slots_lru_cases(case):
+    """Each eviction rule of tests/test_recycling.py, bit-identical to the
+    JAX `assign_slots_lru` (corners, mask, table, last_seen, evicted,
+    dropped)."""
+    table, seen, frame, max_age, ids = LRU_CASES[case]
+    _assign_both(np.asarray(table, np.int32), np.asarray(seen, np.int32),
+                 frame, max_age, _cands(ids))
+
+
+def test_assign_slots_lru_corridor():
+    """The corridor of tests/test_recycling.py (128 markers passing a
+    64-slot table, max_age 20): every frame's assignment bit-identical
+    to JAX, the table recycles (no drop, the last cohort mapped), and at
+    max_age 0 the table saturates and counts the drops."""
+    n_markers, cap, t_frames = 128, 64, 256
+    lm_x = np.arange(n_markers) * 0.25
+    cam_x = np.linspace(0.0, 31.0, t_frames)
+    for max_age in (20, 0):
+        table = np.full(cap, -1, np.int32)
+        seen = np.zeros(cap, np.int32)
+        dropped = evicted = 0
+        for i in range(t_frames):
+            vis = np.where(np.abs(lm_x - cam_x[i]) < 2.5)[0]
+            _, _, table, seen, ev, dr = _assign_both(
+                table, seen, i, max_age, _cands(vis, k=32))
+            dropped += int(dr)
+            evicted += int(ev.sum())
+        if max_age:
+            assert dropped == 0 and evicted > 0
+            assert table.max() == n_markers - 1
+        else:
+            assert dropped > 0 and evicted == 0

@@ -2,7 +2,9 @@
 
 `aruco_slam_tpu_torch.apps.run_slam` and `aruco_slam_tpu.apps.run_slam`
 run on the same rendered npz on the CPU, with full detection on every
-frame and with the streaming tracker (``--track-every``); plus the
+frame, with the streaming tracker (``--track-every``), with 6-dof
+landmarks (``--filter mekf_rotations``), a preloaded map
+(``--load-map``) and slot recycling (``--slot-max-age``); plus the
 port's import hygiene (no jax) and its refusal to run "cuda" without a
 card.
 """
@@ -144,12 +146,77 @@ def test_track_every_refusals(video_rate, flags, error):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--filter", "factorgraph"], ["--filter", "mekf_rotations"],
-    ["--viz-2d"],
-    ["--checkpoint-every", "4"], ["--load-map", "map.txt"]])
+    ["--filter", "factorgraph"], ["--viz-2d"],
+    ["--checkpoint-every", "4"]])
 def test_unported_paths_refuse(sequence, flags):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         trun.main(["--input", str(sequence), "--platform", "cpu", *flags])
+
+
+def test_run_slam_rotations_matches_jax(sequence, tmp_path, monkeypatch):
+    """--filter mekf_rotations (6-dof landmarks, the ambiguity-weighted
+    attitude rows, double-cover alignment) against the JAX run_slam: the
+    slice bound; the map ids equal."""
+    res, (tj, mj), (tt, mt) = _run_both(sequence, tmp_path, monkeypatch,
+                                        ["--filter", "mekf_rotations"])
+    assert res.ate is not None and res.ate < 0.3
+    assert tt.shape == tj.shape == (8, 7)
+    _assert_close(tj, mj, tt, mt)
+
+
+def test_run_slam_load_map_matches_jax(sequence, tmp_path, monkeypatch):
+    """--load-map seeds the filter with a saved map (true marker ids
+    translated through the id->slot table) in both drivers alike."""
+    seed_map = tmp_path / "seed_map.txt"
+    jrun.main(["--input", str(sequence), "--platform", "cpu",
+               "--trajectory", str(tmp_path / "seed_traj.txt"),
+               "--map", str(seed_map)])
+    ids, pos, unc = load_map(seed_map)
+    # keep all but one landmark, and add one marker the sequence never
+    # sees (skipped by both)
+    from aruco_slam_tpu.io import save_map
+    save_map(seed_map, np.append(ids[1:], 49), np.vstack([pos[1:], pos[:1]]),
+             np.vstack([unc[1:], unc[:1]]))
+    res, (tj, mj), (tt, mt) = _run_both(
+        sequence, tmp_path, monkeypatch, ["--load-map", str(seed_map)])
+    assert res.ate is not None and res.ate < 0.3
+    _assert_close(tj, mj, tt, mt)
+
+
+@pytest.fixture(scope="module")
+def two_cohorts(tmp_path_factory):
+    """tests/test_recycling.py's image sequence whose marker cohort
+    changes mid-run: ids 0-4 for 6 frames, then ids 20-24."""
+    from aruco_slam_tpu.apps import make_synthetic
+    k = np.array([[530.0, 0.0, 360.0], [0.0, 530.0, 202.0],
+                  [0.0, 0.0, 1.0]])
+    a, b = (make_synthetic.build(
+        frames=6, markers=5, capacity=16, noise_px=0.2, seed=seed,
+        camera_matrix=k, dist_coeffs=np.zeros(5), with_images=True,
+        image_size=(720, 405), marker_ids=np.arange(5) + off)
+        for seed, off in ((0, 0), (1, 20)))
+    seq = dict(a)
+    seq["images"] = np.concatenate([a["images"], b["images"]])
+    seq["times"] = np.concatenate(
+        [a["times"], a["times"][-1] + 0.04 + b["times"]])
+    for key in ("gt_cam_t", "gt_cam_q"):
+        seq[key] = np.concatenate([a[key], b[key]])
+    path = tmp_path_factory.mktemp("cohorts") / "corridor.npz"
+    save_npz(path, **seq)
+    return path
+
+
+def test_run_slam_slot_recycling_matches_jax(two_cohorts, tmp_path,
+                                             monkeypatch):
+    """--capacity 5 --slot-max-age 2 on the two-cohort sequence: the
+    second cohort is mapped through recycled slots, and the trajectory
+    and map match the JAX run_slam's."""
+    res, (tj, mj), (tt, mt) = _run_both(
+        two_cohorts, tmp_path, monkeypatch,
+        ["--capacity", "5", "--slot-max-age", "2"])
+    assert set(mt[0].tolist()) & set(range(20, 25))
+    assert np.isfinite(tt).all()
+    _assert_close(tj, mj, tt, mt)
 
 
 def _python(code_or_args, **kw):
@@ -168,6 +235,7 @@ def test_port_imports_no_jax():
         "import aruco_slam_tpu_torch.apps.run_slam\n"
         "import aruco_slam_tpu_torch.bench.render\n"
         "import aruco_slam_tpu_torch.ops.detect\n"
+        "import aruco_slam_tpu_torch.parallel.multi_slam\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'aruco_slam_tpu'))\n"
         "assert not bad, bad\n"
