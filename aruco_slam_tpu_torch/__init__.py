@@ -19,10 +19,11 @@ wrapper launches its kernel for a CUDA tensor and runs the plain
 PyTorch version of the same function for a CPU tensor; nothing falls
 back from one to the other.
 
-This package imports no jax and, on every path but video decode,
-nothing of `aruco_slam_tpu` either: the small JAX-free pieces it needs
-(app config, file formats, ATE) are held equal to the JAX package's
-by tests, and the dictionary tables are read from its data files.
+This package imports no jax and nothing of `aruco_slam_tpu`: it keeps
+its own copies of the small JAX-free pieces it needs (app config, file
+formats, the video decoder ``io.VideoSource``, ATE) and ships its own
+dictionary tables in ``ops/data/*.npy``, all held equal to the JAX
+package's by tests.
 """
 
 from aruco_slam_tpu_torch import _device

@@ -141,6 +141,26 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def split_ms(run, labels: list[str]) -> dict[str, float]:
+    """CUDA-event milliseconds of each launch group of one entry-point
+    call, summed by label. ``run(marks, n_marks)`` makes the call with a
+    C array of ``len(labels)`` events, which the entry point records
+    after its k-th launch group (`aruco_mark`)."""
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(labels) + 1)]
+    for e in events:
+        e.record()  # creates the event handles
+    marks = (ctypes.c_void_p * len(labels))(
+        *[e.cuda_event for e in events[1:]])
+    events[0].record()
+    run(ctypes.cast(marks, ctypes.c_void_p), len(labels))
+    events[-1].synchronize()
+    out: dict[str, float] = {}
+    for label, a, b in zip(labels, events, events[1:]):
+        out[label] = out.get(label, 0.0) + a.elapsed_time(b)
+    return out
+
+
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
                ndim: int) -> None:
     """A kernel argument must be a contiguous CUDA tensor of the

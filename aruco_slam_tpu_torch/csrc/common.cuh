@@ -12,6 +12,13 @@
         if (err_ != cudaSuccess) return static_cast<int>(err_); \
     } while (0)
 
+// Record marks[k], when the caller gave marks, after the k-th launch
+// group of an entry point: the wrappers' split timing (CUDA events).
+static inline void aruco_mark(cudaEvent_t* marks, int n_marks, int k,
+                              cudaStream_t stream) {
+    if (marks != nullptr && k < n_marks) cudaEventRecord(marks[k], stream);
+}
+
 static inline unsigned int aruco_blocks(long long n, int threads) {
     return static_cast<unsigned int>((n + threads - 1) / threads);
 }

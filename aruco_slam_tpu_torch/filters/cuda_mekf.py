@@ -3,9 +3,10 @@
 Counterpart of aruco_slam_tpu/filters/pallas_mekf.py `fused_update`:
 PHᵀ; S = HPHᵀ + diag(r); S⁻¹ by Newton–Schulz; K = PHᵀS⁻¹;
 inn = K·resid; P' = sym((I−KH)P(I−KH)ᵀ + K diag(r) Kᵀ). The kernel is
-``csrc/mekf_update.cu`` (every product in the repo's own tiled GEMM,
-no cuBLAS); `fused_update_plain` is the same chain in PyTorch matmuls
-at full f32 and is what a CPU tensor runs.
+``csrc/mekf_update.cu`` (Newton–Schulz in one thread-block cluster per
+stream, every other product in the repo's own register-tiled GEMM, no
+cuBLAS); `fused_update_plain` is the same chain in PyTorch matmuls at
+full f32 and is what a CPU tensor runs.
 
 Both take one filter, or S filters (streams) stacked along a leading
 axis: the JAX fleet vmaps its whole filter, Pallas update included, and
@@ -63,13 +64,51 @@ def fused_update(cov: torch.Tensor, h: torch.Tensor, r_diag: torch.Tensor,
                          f"resid {tuple(resid.shape)}")
     if cov.device.type == "cpu":
         return fused_update_plain(cov, h, r_diag, resid, ns_iters)
-    return _launch(cov, h, r_diag, resid, ns_iters)
+    out = _launch(cov, h, r_diag, resid, ns_iters)
+    fused_update.launches += 1
+    return out
 
 
 fused_update.launches = 0
 
 
-def _launch(cov, h, r_diag, resid, ns_iters):
+# The kernel's Newton–Schulz forms, in the order the C entry point tries
+# them: "columns" and "rows" (one 8-CTA cluster per stream, column or
+# row slabs, S, K and inn folded in; M <= 128 and M <= 256), "block"
+# (one block per stream, any M). Each takes every M the ones before it
+# take.
+FORMS = ("columns", "rows", "block")
+
+
+def newton_schulz_form(m: int) -> str:
+    """The form the kernel runs for M observation rows: the first of
+    FORMS that takes M (the later ones take it too). Builds the
+    kernels."""
+    fn = _build.function("mekf_update_form", [ctypes.c_int])
+    return FORMS[fn(m) - 1]
+
+
+def fused_update_form(cov, h, r_diag, resid, form: str,
+                      ns_iters: int = 20):
+    """`fused_update` on CUDA tensors with the Newton–Schulz form forced
+    (one of FORMS that takes M), for timing and testing each form at
+    shapes the kernel would run in another; not counted in
+    ``fused_update.launches``."""
+    return _launch(cov, h, r_diag, resid, ns_iters, FORMS.index(form) + 1)
+
+
+def split_ms(cov, h, r_diag, resid, ns_iters: int = 20) -> dict:
+    """CUDA-event milliseconds of each launch group of one kernel call on
+    CUDA tensors (not counted in ``fused_update.launches``): "pht"
+    PHᵀ; "gain" S, its Newton–Schulz inverse, K and the innovation;
+    "joseph" I − KH and the symmetrized Joseph covariance."""
+    return _build.split_ms(lambda marks, n_marks: _launch(
+        cov, h, r_diag, resid, ns_iters, 0, marks, n_marks),
+        ["pht", "gain", "joseph"])
+
+
+def _launch(cov, h, r_diag, resid, ns_iters, form=0, marks=None,
+            n_marks=0):
     args = [t.contiguous() for t in (cov, h, r_diag, resid)]
     batched = cov.dim() == 3
     for name, t, nd in zip(("cov", "h", "r_diag", "resid"), args,
@@ -90,17 +129,12 @@ def _launch(cov, h, r_diag, resid, ns_iters):
     inn = torch.empty(cov.shape[:-1], dtype=torch.float32,
                       device=cov.device)
     new_cov = torch.empty_like(cov)
-    ptrs = [ctypes.c_void_p] * 7
-    if batched:
-        fn = _build.function("mekf_fused_update_batched", ptrs + [
-            ctypes.c_int] * 4 + [ctypes.c_void_p])
-        dims = (streams, n, m, ns_iters)
-    else:
-        fn = _build.function("mekf_fused_update", ptrs + [
-            ctypes.c_int] * 3 + [ctypes.c_void_p])
-        dims = (n, m, ns_iters)
+    fn = _build.function("mekf_fused_update_batched", [ctypes.c_void_p] * 7
+                         + [ctypes.c_int] * 5 + [ctypes.c_void_p,
+                                                 ctypes.c_int,
+                                                 ctypes.c_void_p])
     _build.call(fn, _build.ptr(cov), _build.ptr(h), _build.ptr(r_diag),
                 _build.ptr(resid), _build.ptr(inn), _build.ptr(new_cov),
-                _build.ptr(scratch), *dims, _build.stream())
-    fused_update.launches += 1
+                _build.ptr(scratch), streams, n, m, ns_iters, form, marks,
+                n_marks, _build.stream())
     return inn, new_cov

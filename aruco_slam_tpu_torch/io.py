@@ -3,9 +3,12 @@ npz sequence bundles, the TUM trajectory file and the landmark map file.
 
 The same formats byte for byte (tests/test_torch_core.py reads the
 port's files with the JAX package's readers), without importing the
-JAX package. Video decode is the one exception: `video_frames` reuses
-the JAX package's JAX-free ``VideoSource`` and imports it only when a
-video is opened.
+JAX package. `VideoSource` decodes video files as the JAX package's
+does (imageio's pyav plugin where it is installed, else cv2), with the
+numpy grayscale+resize in place of the native host library; both give
+the same bytes (integer BT.601 weights, floored), which
+tests/test_torch_core.py checks on the imageio route with and without
+that library.
 """
 
 from __future__ import annotations
@@ -22,9 +25,72 @@ def is_video(path) -> bool:
     return Path(path).suffix.lower() in VIDEO_SUFFIXES
 
 
+def gray_resize(frame: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
+    """RGB/gray uint8 frame -> grayscale uint8 at out_hw: BT.601 weights
+    in 1/256ths and nearest-neighbour rows/columns."""
+    oh, ow = out_hw
+    frame = np.ascontiguousarray(frame)
+    if frame.ndim == 2:
+        g = frame.astype(np.float32)
+    else:
+        g = frame[..., :3].astype(np.float32) @ (np.asarray([77, 150, 29])
+                                                 / 256.0)
+    ys = np.arange(oh) * frame.shape[0] // oh
+    xs = np.arange(ow) * frame.shape[1] // ow
+    return g[ys][:, xs].astype(np.uint8)
+
+
+class VideoSource:
+    """Grayscale frames from a video file, decoded on the host: imageio's
+    pyav plugin where it is installed, else cv2. ``size=(w, h)`` resizes
+    every frame; None keeps the native resolution."""
+
+    def __init__(self, path, size=None) -> None:
+        self.path = str(path)
+        self.size = size
+        try:
+            import imageio.v3 as iio
+            self._iio = iio
+            self._mode = "imageio"
+            meta = iio.improps(self.path, plugin="pyav")
+            self.num_frames = int(meta.shape[0]) if meta.shape else 0
+        except Exception:
+            import cv2
+            self._cv2 = cv2
+            self._mode = "cv2"
+            cap = cv2.VideoCapture(self.path)
+            self.num_frames = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+            cap.release()
+
+    def __len__(self) -> int:
+        return self.num_frames
+
+    def frames(self):
+        """Yield (timestamp_s, grayscale uint8 (H, W)) per frame."""
+        w, h = self.size if self.size else (None, None)
+        if self._mode == "imageio":
+            for i, frame in enumerate(
+                    self._iio.imiter(self.path, plugin="pyav")):
+                out_hw = (h, w) if self.size else frame.shape[:2]
+                yield i / 30.0, gray_resize(frame, out_hw)
+            return
+        cap = self._cv2.VideoCapture(self.path)
+        try:
+            while True:
+                ret, frame = cap.read()
+                if not ret:
+                    break
+                ts = cap.get(self._cv2.CAP_PROP_POS_MSEC) / 1000.0
+                gray = self._cv2.cvtColor(frame, self._cv2.COLOR_BGR2GRAY)
+                if self.size:
+                    gray = self._cv2.resize(gray, (w, h))
+                yield ts, gray
+        finally:
+            cap.release()
+
+
 def video_frames(path):
     """(timestamp_s, grayscale uint8 (H, W)) per frame of a video."""
-    from aruco_slam_tpu.io.sources import VideoSource
     return VideoSource(path).frames()
 
 

@@ -174,26 +174,38 @@ def flood_scan_labels(fg: torch.Tensor, iters: int,
     def run(f):
         if f.device.type == "cpu":
             return flood_scan_labels_plain(f, iters, scan_rounds)
-        return _launch(f, iters, scan_rounds)
+        out = _launch(f, iters, scan_rounds)
+        flood_scan_labels.launches += 1
+        return out
     return _batched(fg, run)
 
 
 flood_scan_labels.launches = 0
 
 
-def _launch(fg: torch.Tensor, iters: int, scan_rounds: int
-            ) -> torch.Tensor:
+def split_ms(fg: torch.Tensor, iters: int, scan_rounds: int) -> dict:
+    """CUDA-event milliseconds of one kernel call on a CUDA (B, h, w)
+    mask, summed over its launch groups (not counted in
+    ``flood_scan_labels.launches``): "stencil" (the opening block, with
+    the seeding, and one block a scan round), "rows" and "cols"."""
+    groups = ["stencil"] + ["rows", "cols", "stencil"] * scan_rounds
+    return _build.split_ms(lambda marks, n_marks: _launch(
+        fg, iters, scan_rounds, marks, n_marks), groups)
+
+
+def _launch(fg: torch.Tensor, iters: int, scan_rounds: int, marks=None,
+            n_marks: int = 0) -> torch.Tensor:
     fg_u8 = _mask_u8(fg, "flood_scan_labels")
     b, h, w = fg_u8.shape
-    cleared = torch.empty_like(fg_u8)
+    if b > 65535:
+        raise ValueError(f"flood_scan_labels: {b} frames > 65535")
     labels = torch.empty((b, h, w), dtype=torch.int32, device=fg.device)
     scratch = torch.empty_like(labels)
     fn = _build.function("flood_scan_labels", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    _build.call(fn, _build.ptr(fg_u8), _build.ptr(cleared),
-                _build.ptr(labels), _build.ptr(scratch), b, h, w,
-                iters, scan_rounds, _build.stream())
-    flood_scan_labels.launches += 1
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    _build.call(fn, _build.ptr(fg_u8), _build.ptr(labels),
+                _build.ptr(scratch), b, h, w, iters, scan_rounds, marks,
+                n_marks, _build.stream())
     return labels

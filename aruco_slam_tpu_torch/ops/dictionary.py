@@ -1,11 +1,11 @@
 """ArUco marker dictionaries: bit patterns and the all-rotations table.
 
 Counterpart of aruco_slam_tpu/ops/dictionary.py. The bit patterns are
-the baked ``.npy`` tables that ship in aruco_slam_tpu/ops/data/ (every
-cv2 predefined dictionary); this module reads those data files and
-imports nothing of the JAX package. `load` expands each code into its
-4 rotations as ±1 rows, so decode matches every candidate against
-every code and rotation with one matmul.
+the baked ``.npy`` tables of every cv2 predefined dictionary, shipped
+with this package in ``ops/data/`` (byte-equal copies of the JAX
+package's, held so by tests/test_torch_core.py). `load` expands each
+code into its 4 rotations as ±1 rows, so decode matches every
+candidate against every code and rotation with one matmul.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from typing import NamedTuple
 
 import numpy as np
 
-DATA = Path(__file__).resolve().parents[2] / "aruco_slam_tpu" / "ops" / "data"
+DATA = Path(__file__).resolve().parent / "data"
 
 DICT_5X5_50 = "dict_5x5_50"
 

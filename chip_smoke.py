@@ -12,14 +12,23 @@ non-zero, and no result line is printed):
                 (one nvcc per source, in parallel).
 3. kernels    — each kernel's wrapper against its plain PyTorch version
                 on the card, at its path's shapes, with the stated
-                tolerance; CUDA-event times (median of 20 after
-                warm-up): B1 labeling, B2 subpixel refinement (the
+                tolerance: B1 labeling, B2 subpixel refinement (the
                 detector's schedule and the tracker's three), B3 MEKF
                 update (point mode N = 201, M = 48; rotation mode N =
-                393, M = 112; and 8 streams in one batched launch
+                393, M = 112, and M = 224 at --max-obs 32; and 8
+                streams in one batched launch
                 against the plain version and against 8 single-stream
-                launches), B4 stencil-only labeling, B5 patch-fed
-                refinement.
+                launches; P' exactly symmetric; which Newton–Schulz
+                path the C entry point took), B4 stencil-only labeling,
+                B5 patch-fed refinement. Times: `ms` and `plain_ms` are
+                the median of one call on an idle card (host time
+                between launches included), `device_ms` and
+                `plain_device_ms` device time (20 calls queued behind a
+                spin of the card, so host time between launches is not
+                counted), each beside its roofline bound; B1 and B3 also
+                split into launch groups by CUDA events the C entry
+                point records, and B3 is timed in every Newton–Schulz
+                form that takes its M.
 4. main path  — 32 rendered 1920x1080 frames through
                 `aruco_slam_tpu_torch.apps.run_slam.main` (robust
                 detector, PnP, MEKF at the run_slam defaults): output
@@ -49,7 +58,9 @@ non-zero, and no result line is printed):
                 launched, B3 once per frame) and warm (aggregate
                 frames/s, peak device memory).
 
-The line before the last is {"kernels": [...]}; the last line is
+The line before the last is {"kernels": [...]} (each with its launches
+on the main path, or on its own path for B4 and B5, and its launches
+per 32-frame chunk on every path); the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX and nothing
 of the JAX package (aruco_slam_tpu).
 """
@@ -89,14 +100,48 @@ MAX_OBS = "16"        # shared --max-obs of the fleet and its references
 DETECTOR_SCHED = ((6, 6), (3, 4))
 TRACKER_SCHEDS = (((8, 6),), ((6, 4),), ((3, 4), (2, 2)))
 REFINE_SCHED = ((5, 8),)
+# the card's peaks for the roofline bound (NVIDIA's H100 SXM data sheet
+# at 700 W; int32: 132 SMs x 64 min/compare lanes x 1.98 GHz)
+F32_PEAK = 67e12      # FLOP/s, f32 outside the tensor cores
+INT32_PEAK = 132 * 64 * 1.98e9
+HBM_RATE = 3.35e12    # bytes/s
+# the least int32 work of labeling, a pixel: a 3x3 min-stencil round is
+# 2 vertical and 2 horizontal mins and 1 select (background stays); a
+# segmented-scan pass 1 min and 1 select (a reset at background); a scan
+# round is 4 passes (rows and columns, forward and backward)
+STENCIL_OPS = 5
+SCAN_PASS_OPS = 2
+SPLIT_REPS = 10       # calls whose launch-group split is the median
+SPIN_CYCLES = 100_000_000  # ~50 ms of the card's clock ahead of timed calls
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median CUDA-event time of fn() in milliseconds."""
+def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device milliseconds a call of fn(): the mean over ``reps`` calls
+    queued behind a spin of the card (torch.cuda._sleep) long enough for
+    the host to enqueue them, so host time between launches is not
+    counted."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def call_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median CUDA-event milliseconds of one call of fn() on an idle
+    card, host time between its launches included."""
     import torch
     for _ in range(warmup):
         fn()
@@ -111,6 +156,47 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def timings(kernel, plain, plain_reps: int = 20) -> dict:
+    """A kernel's times beside its plain version's on the same inputs:
+    "ms" and "plain_ms" one call (`call_ms`), "device_ms" and
+    "plain_device_ms" device time (`device_ms`)."""
+    return {"ms": call_ms(kernel), "device_ms": device_ms(kernel),
+            "plain_ms": call_ms(plain, reps=plain_reps),
+            "plain_device_ms": device_ms(plain, reps=plain_reps)}
+
+
+def _fmt_t(t: dict) -> str:
+    return (f"kernel {t['ms']:.3f} ms a call ({t['device_ms']:.3f} device), "
+            f"plain {t['plain_ms']:.3f} ms ({t['plain_device_ms']:.3f} "
+            "device)")
+
+
+def bound(ops: float, nbytes: float, peak: float):
+    """The least time the card could take (ms) and what sets it: each
+    input byte read once and each output byte written once at HBM_RATE,
+    against the operations at ``peak``."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_RATE * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _fmt(split: dict) -> str:
+    return ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                     for k, v in split.items())
+
+
+def split_median(fn, reps: int = SPLIT_REPS) -> dict:
+    """Median over ``reps`` calls of each launch group's CUDA-event ms
+    (fn returns one call's {group: ms})."""
+    import torch
+    fn()
+    runs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES // 10)
+        runs.append(fn())
+    return {k: statistics.median(r[k] for r in runs) for k in runs[0]}
 
 
 def phase_device():
@@ -150,7 +236,7 @@ def _b1(rng, dev):
     cases = [((CHUNK, 270, 480), 16, 4), ((CHUNK, 540, 960), 16, 4),
              ((2, 1080, 1920), 16, 4)]
     worst = 0
-    timing = None
+    shapes = []
     for shape, iters, rounds in cases:
         fg = torch.from_numpy(rng.random(shape) < 0.45).to(dev)
         got = cuda_cc.flood_scan_labels(fg, iters, rounds)
@@ -158,22 +244,35 @@ def _b1(rng, dev):
         torch.cuda.synchronize()
         bad = int((got != want).sum())
         worst = max(worst, bad)
-        ms = cuda_ms(lambda: cuda_cc.flood_scan_labels(fg, iters, rounds))
-        plain = cuda_ms(lambda: cuda_cc.flood_scan_labels_plain(
-            fg, iters, rounds), reps=10)
+        t = timings(lambda: cuda_cc.flood_scan_labels(fg, iters, rounds),
+                    lambda: cuda_cc.flood_scan_labels_plain(
+                        fg, iters, rounds), plain_reps=10)
+        # per + rounds * per stencil rounds and 4 scan passes a round;
+        # the mask in, labels out
+        per = max(1, iters // (rounds + 1))
+        px = shape[0] * shape[1] * shape[2]
+        b_ms, b_by = bound(px * (STENCIL_OPS * per * (rounds + 1)
+                                 + SCAN_PASS_OPS * 4 * rounds),
+                           px * 5, INT32_PEAK)
+        split = split_median(lambda: cuda_cc.split_ms(fg, iters, rounds)) \
+            if dev.type == "cuda" else {}
         log(f"[B1] flood_scan_labels {shape} iters {iters} rounds "
-            f"{rounds}: {bad} labels differ; kernel {ms:.3f} ms, plain "
-            f"{plain:.3f} ms")
+            f"{rounds}: {bad} labels differ; {_fmt_t(t)}, bound "
+            f"{b_ms:.4f} ms ({b_by}); split {_fmt(split)}")
         if bad > B1_TOL:
             raise AssertionError(f"B1 differs from its plain version at "
                                  f"{shape}: {bad} labels")
-        if shape[1:] == (540, 960):
-            timing = (ms, plain)
+        shapes.append({"shape": list(shape), **t, "bound_ms": b_ms,
+                       "bound_by": b_by, "split_ms": split})
+    main = shapes[1]  # (CHUNK, 540, 960): the fine pass
     return {"name": "flood_scan_labels", "route": "cuda",
             "source": "aruco_slam_tpu_torch/csrc/flood_scan.cu",
             "replaces": "aruco_slam_tpu/ops/pallas_cc.py:87",
-            "max_abs_err": float(worst), "ms": timing[0],
-            "plain_ms": timing[1]}
+            "max_abs_err": float(worst),
+            **{k: main[k] for k in ("ms", "device_ms", "plain_ms",
+                                    "plain_device_ms", "bound_ms",
+                                    "bound_by", "split_ms")},
+            "library_ms": None, "shapes": shapes}
 
 
 def _seeds(corners_true, mask_true, rng, per_frame: int, jitter: float):
@@ -189,6 +288,19 @@ def _seeds(corners_true, mask_true, rng, per_frame: int, jitter: float):
                                                   true.shape)
         n_true.append(len(true))
     return seeds.astype("float32"), n_true
+
+
+def _subpix_bound(n: int, sched, elem: int):
+    """Bound of refining n corners: per patch pixel ~6 flops of
+    gradients and ~20 per iteration (offsets, window test, exp, five
+    products and sums) over the whole p x p patch, as the reference
+    computes it; each corner's patch (elem bytes a pixel) and seed read
+    once, its corner written once."""
+    from aruco_slam_tpu_torch.ops import cuda_subpix
+    rad, _ = cuda_subpix.schedule_params(sched)
+    pp = (2 * rad + 1) ** 2
+    iters = sum(it for _, it in sched)
+    return bound(n * pp * (6 + 20 * iters), n * (pp * elem + 16), F32_PEAK)
 
 
 def _b2(frames, corners_true, mask_true, rng, dev):
@@ -212,23 +324,24 @@ def _b2(frames, corners_true, mask_true, rng, dev):
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         worst = max(worst, err)
-        ms = cuda_ms(lambda: cuda_subpix.refine_corners(img, c, sched))
-        plain = cuda_ms(lambda: cuda_subpix.refine_corners_plain(
-            img, c, sched), reps=10)
+        t = timings(lambda: cuda_subpix.refine_corners(img, c, sched),
+                    lambda: cuda_subpix.refine_corners_plain(img, c, sched),
+                    plain_reps=10)
         rad, _ = cuda_subpix.schedule_params(sched)
+        b_ms, b_by = _subpix_bound(c.shape[0] * c.shape[1], sched, 1)
         log(f"[B2] refine_corners {tuple(c.shape)} schedule {sched} (p = "
             f"{2 * rad + 1}) on {h}x{w} uint8: max |kernel - plain| "
-            f"{err:.3e} px (tol {B2_TOL}); kernel {ms:.3f} ms, plain "
-            f"{plain:.3f} ms")
+            f"{err:.3e} px (tol {B2_TOL}); {_fmt_t(t)}, bound {b_ms:.4f} "
+            f"ms ({b_by})")
         if not np.isfinite(err) or err > B2_TOL:
             raise AssertionError(f"B2 differs from its plain version at "
                                  f"{sched}: {err}")
         if timing is None:
-            timing = (ms, plain)
+            timing = {**t, "bound_ms": b_ms, "bound_by": b_by}
     return {"name": "refine_corners", "route": "cuda",
             "source": "aruco_slam_tpu_torch/csrc/subpix.cu",
             "replaces": "aruco_slam_tpu/ops/pallas_subpix.py:92",
-            "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1]}
+            "max_abs_err": worst, **timing, "library_ms": None}
 
 
 def _b4(rng, dev):
@@ -248,21 +361,22 @@ def _b4(rng, dev):
         torch.cuda.synchronize()
         bad = int((got != want).sum())
         worst = max(worst, bad)
-        ms = cuda_ms(lambda: cuda_cc.flood_labels(fg, iters))
-        plain = cuda_ms(lambda: cuda_cc.flood_labels_plain(fg, iters),
-                        reps=10)
+        t = timings(lambda: cuda_cc.flood_labels(fg, iters),
+                    lambda: cuda_cc.flood_labels_plain(fg, iters),
+                    plain_reps=10)
+        px = shape[0] * shape[1] * shape[2]
+        b_ms, b_by = bound(px * STENCIL_OPS * iters, px * 5, INT32_PEAK)
         log(f"[B4] flood_labels {shape} iters {iters}: {bad} labels "
-            f"differ; kernel {ms:.3f} ms, plain {plain:.3f} ms")
+            f"differ; {_fmt_t(t)}, bound {b_ms:.4f} ms ({b_by})")
         if bad > B4_TOL:
             raise AssertionError(f"B4 differs from its plain version at "
                                  f"{shape}: {bad} labels")
         if shape[1:] == (540, 960):
-            timing = (ms, plain)
+            timing = {**t, "bound_ms": b_ms, "bound_by": b_by}
     return {"name": "flood_labels", "route": "cuda",
             "source": "aruco_slam_tpu_torch/csrc/flood.cu",
             "replaces": "aruco_slam_tpu/ops/pallas_cc.py:39",
-            "max_abs_err": float(worst), "ms": timing[0],
-            "plain_ms": timing[1]}
+            "max_abs_err": float(worst), **timing, "library_ms": None}
 
 
 def _b5(frames, corners_true, mask_true, rng, dev):
@@ -285,28 +399,31 @@ def _b5(frames, corners_true, mask_true, rng, dev):
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         worst = max(worst, err)
-        ms = cuda_ms(lambda: cuda_subpix.refine_offsets(patches, c0, sched))
-        plain = cuda_ms(lambda: cuda_subpix.refine_offsets_plain(
-            patches, c0, sched), reps=10)
+        t = timings(lambda: cuda_subpix.refine_offsets(patches, c0, sched),
+                    lambda: cuda_subpix.refine_offsets_plain(patches, c0,
+                                                             sched),
+                    plain_reps=10)
+        b_ms, b_by = _subpix_bound(patches.shape[0], sched, 4)
         log(f"[B5] refine_offsets {tuple(patches.shape)} schedule {sched}: "
-            f"max |kernel - plain| {err:.3e} px (tol {B5_TOL}); kernel "
-            f"{ms:.3f} ms, plain {plain:.3f} ms")
+            f"max |kernel - plain| {err:.3e} px (tol {B5_TOL}); "
+            f"{_fmt_t(t)}, bound {b_ms:.4f} ms ({b_by})")
         if not np.isfinite(err) or err > B5_TOL:
             raise AssertionError(f"B5 differs from its plain version at "
                                  f"{sched}: {err}")
         if timing is None:
-            timing = (ms, plain)
+            timing = {**t, "bound_ms": b_ms, "bound_by": b_by}
     return {"name": "refine_offsets", "route": "cuda",
             "source": "aruco_slam_tpu_torch/csrc/subpix.cu",
             "replaces": "aruco_slam_tpu/ops/pallas_subpix.py:38",
-            "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1]}
+            "max_abs_err": worst, **timing, "library_ms": None}
 
 
 def _capture_update_inputs(corners, mask, cam, marker_size,
-                           rotations: bool = False):
+                           rotations: bool = False, max_obs: int = 0):
     """The fused update's inputs at every frame of a short filter run
     on the CPU (the run_slam MEKF settings: N = 201, M = 48 in point
-    mode, N = 393, M = 112 with rotations and the PnP ambiguity)."""
+    mode, N = 393, M = 112 with rotations and the PnP ambiguity, M = 224
+    with rotations at --max-obs 32)."""
     import torch
     from aruco_slam_tpu_torch.apps import run_slam
     from aruco_slam_tpu_torch.config import SlamAppConfig
@@ -325,7 +442,8 @@ def _capture_update_inputs(corners, mask, cam, marker_size,
 
     cuda_mekf.fused_update = record
     try:
-        run_slam.run_mekf(SlamAppConfig(input=""), list(range(len(mask))),
+        run_slam.run_mekf(SlamAppConfig(input="", max_obs=max_obs),
+                          list(range(len(mask))),
                           res.t_cl.numpy(), res.q_cl.numpy(), mask, cam,
                           cpu, with_rotations=rotations, ambiguity=amb)
     finally:
@@ -340,7 +458,54 @@ def _b3_err(got, want) -> float:
                for g, w in zip(got, want))
 
 
-def _b3(captured, captured_rot, dev):
+def _b3_bound(streams: int, n: int, m: int, iters: int = 20):
+    """Bound of the fused update: the chain's f32 FLOPs (PHᵀ, S, the
+    Newton–Schulz steps, K, K·resid, KH, the two Joseph products, KRKᵀ);
+    P, H, r and resid read once, the innovation and P' written once."""
+    flops = (3 * 2 * n * n * m + 2 * m * m * n + iters * 4 * m ** 3
+             + 2 * n * m * m + 2 * n * m + 4 * n ** 3)
+    return bound(streams * flops, streams * 4 * (2 * n * n + m * n + 2 * m
+                                                 + n), F32_PEAK)
+
+
+def _b3_split(args, dev) -> dict:
+    """The launch-group split, with the Newton–Schulz form the C entry
+    point takes for this M."""
+    from aruco_slam_tpu_torch.filters import cuda_mekf
+    if dev.type != "cuda":
+        return {}
+    split = split_median(lambda: cuda_mekf.split_ms(*args))
+    return {**split, "path": cuda_mekf.newton_schulz_form(args[1].shape[-2])}
+
+
+def _b3_forms(args, want, dev) -> dict:
+    """Every Newton–Schulz form that takes this M, forced: each held
+    against the plain version (B3_TOL, P' exactly symmetric) and timed
+    (ms a call, device ms), so both sides of each choice the C entry
+    point makes by M are measured on the same inputs."""
+    import numpy as np
+    import torch
+    from aruco_slam_tpu_torch.filters import cuda_mekf
+    if dev.type != "cuda":
+        return {}
+    forms = cuda_mekf.FORMS
+    out = {}
+    for form in forms[forms.index(cuda_mekf.newton_schulz_form(
+            args[1].shape[-2])):]:
+        def run(form=form):
+            return cuda_mekf.fused_update_form(*args, form)
+        got = run()
+        err = _b3_err(got, want)
+        sym = bool(torch.equal(got[1], got[1].transpose(-1, -2)))
+        if not np.isfinite(err) or err > B3_TOL or not sym:
+            raise AssertionError(f"B3 in the {form} form differs from its "
+                                 f"plain version: {err}, symmetric {sym}")
+        out[form] = {"ms": call_ms(run), "device_ms": device_ms(run),
+                     "max_abs_err": err}
+    return out
+
+
+def _b3(captured, captured_rot, captured_rot32, dev):
     import numpy as np
     import torch
     from aruco_slam_tpu_torch.filters import cuda_mekf
@@ -350,7 +515,9 @@ def _b3(captured, captured_rot, dev):
     cases = [("point", (cov, h, r, resid)),
              ("point, cut", (cov[:n, :n].contiguous(),
                              h[:, :n].contiguous(), r, resid)),
-             ("rotations", tuple(a.to(dev) for a in captured_rot[mid]))]
+             ("rotations", tuple(a.to(dev) for a in captured_rot[mid])),
+             ("rotations, --max-obs 32",
+              tuple(a.to(dev) for a in captured_rot32[mid]))]
     worst = 0.0
     shapes = []
     for tag, args in cases:
@@ -359,16 +526,30 @@ def _b3(captured, captured_rot, dev):
         torch.cuda.synchronize()
         err = _b3_err(got, want)
         worst = max(worst, err)
-        ms = cuda_ms(lambda: cuda_mekf.fused_update(*args))
-        plain = cuda_ms(lambda: cuda_mekf.fused_update_plain(*args))
-        shape = f"N={args[0].shape[0]} M={args[1].shape[0]}"
+        t = timings(lambda: cuda_mekf.fused_update(*args),
+                    lambda: cuda_mekf.fused_update_plain(*args))
+        n_, m_ = args[0].shape[0], args[1].shape[0]
+        shape = f"N={n_} M={m_}"
+        b_ms, b_by = _b3_bound(1, n_, m_)
+        split = _b3_split(args, dev)
+        forms = _b3_forms(args, want, dev)
+        # one Newton–Schulz step: the device time at 20 steps less that
+        # at 0
+        step_us = (t["device_ms"] - device_ms(lambda: cuda_mekf.fused_update(
+            *args, ns_iters=0))) / 20 * 1e3
+        sym = bool(torch.equal(got[1], got[1].T))
         log(f"[B3] fused_update {shape} ({tag}): max |kernel - plain| "
-            f"{err:.3e} (tol {B3_TOL}); kernel {ms:.3f} ms, plain "
-            f"{plain:.3f} ms")
-        if not np.isfinite(err) or err > B3_TOL:
+            f"{err:.3e} (tol {B3_TOL}); symmetric {sym}; {_fmt_t(t)}; a "
+            f"Newton–Schulz step {step_us:.2f} us device; bound {b_ms:.4f} "
+            f"ms ({b_by}); split {_fmt(split)}; forms (ms a call / device) "
+            + ", ".join(f"{f} {v['ms']:.3f} / {v['device_ms']:.3f}"
+                        for f, v in forms.items()))
+        if not np.isfinite(err) or err > B3_TOL or not sym:
             raise AssertionError(f"B3 differs from its plain version at "
-                                 f"{shape}: {err}")
-        shapes.append({"shape": shape, "ms": ms, "plain_ms": plain,
+                                 f"{shape}: {err}, symmetric {sym}")
+        shapes.append({"shape": shape, **t, "ns_step_us": step_us,
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "split_ms": split, "forms": forms,
                        "max_abs_err": err})
     # the last STREAMS frames of the point-mode run as STREAMS streams in
     # one launch (the batched entry point), against the batched plain
@@ -383,15 +564,22 @@ def _b3(captured, captured_rot, dev):
     err = _b3_err(got, want)
     vs_single = max(float((got[j][i] - singles[i][j]).abs().max())
                     for i in range(STREAMS) for j in range(2))
-    ms = cuda_ms(lambda: cuda_mekf.fused_update(*batch))
-    plain = cuda_ms(lambda: cuda_mekf.fused_update_plain(*batch))
-    singles_ms = cuda_ms(lambda: [cuda_mekf.fused_update(
-        *(a[i] for a in batch)) for i in range(STREAMS)])
+    t = timings(lambda: cuda_mekf.fused_update(*batch),
+                lambda: cuda_mekf.fused_update_plain(*batch))
+
+    def launch_singles():
+        return [cuda_mekf.fused_update(*(a[i] for a in batch))
+                for i in range(STREAMS)]
+    singles_ms = call_ms(launch_singles)
+    singles_dev = device_ms(launch_singles)
     shape = f"S={STREAMS} N={batch[0].shape[1]} M={batch[1].shape[1]}"
+    b_ms, b_by = _b3_bound(STREAMS, batch[0].shape[1], batch[1].shape[1])
+    split = _b3_split(batch, dev)
     log(f"[B3] fused_update batched {shape}: max |kernel - plain| "
         f"{err:.3e} (tol {B3_TOL}); max |batched - single launches| "
-        f"{vs_single:.3e} (bit-equal expected); kernel {ms:.3f} ms, plain "
-        f"{plain:.3f} ms, {STREAMS} single launches {singles_ms:.3f} ms")
+        f"{vs_single:.3e} (bit-equal expected); {_fmt_t(t)}, {STREAMS} "
+        f"single launches {singles_ms:.3f} ms a call ({singles_dev:.3f} "
+        f"device), bound {b_ms:.4f} ms ({b_by}); split {_fmt(split)}")
     # (a CPU tensor runs the plain chain, whose batched matmuls sum in
     # another order than single ones: only the kernel is bit-equal)
     exact = dev.type == "cuda"
@@ -400,14 +588,19 @@ def _b3(captured, captured_rot, dev):
                              f"{vs_single} against single launches")
     worst = max(worst, err)
     shapes.append({"shape": shape, "entry": "mekf_fused_update_batched",
-                   "ms": ms, "plain_ms": plain,
-                   "single_launches_ms": singles_ms, "max_abs_err": err,
-                   "max_abs_err_vs_single": vs_single})
+                   **t, "single_launches_ms": singles_ms,
+                   "single_launches_device_ms": singles_dev,
+                   "max_abs_err": err, "max_abs_err_vs_single": vs_single,
+                   "bound_ms": b_ms, "bound_by": b_by, "split_ms": split})
+    main = shapes[0]
     return {"name": "fused_update", "route": "cuda",
             "source": "aruco_slam_tpu_torch/csrc/mekf_update.cu",
             "replaces": "aruco_slam_tpu/filters/pallas_mekf.py:40",
-            "max_abs_err": worst, "ms": shapes[0]["ms"],
-            "plain_ms": shapes[0]["plain_ms"], "shapes": shapes}
+            "max_abs_err": worst,
+            **{k: main[k] for k in ("ms", "device_ms", "plain_ms",
+                                    "plain_device_ms", "bound_ms",
+                                    "bound_by", "split_ms")},
+            "library_ms": None, "shapes": shapes}
 
 
 def _wrappers():
@@ -829,7 +1022,11 @@ def main() -> int:
                                       scene.marker_size)
     captured_rot = _capture_update_inputs(corners, mask, cam,
                                           scene.marker_size, rotations=True)
-    kernels += [_b3(captured, captured_rot, dev), _b4(rng, dev),
+    captured_rot32 = _capture_update_inputs(corners, mask, cam,
+                                            scene.marker_size, rotations=True,
+                                            max_obs=32)
+    kernels += [_b3(captured, captured_rot, captured_rot32, dev),
+                _b4(rng, dev),
                 _b5(frames, corners, mask, rng, dev)]
     # the fleet's second scene: another wall (seed 1), the same orbit
     t0 = time.perf_counter()
@@ -851,23 +1048,31 @@ def main() -> int:
                 "--map", str(Path(tmp) / "map.txt")]
         main_launches, main_res, main_fps = phase_main(argv, traj.cam_t,
                                                        smi)
-        path_launches = {
-            "flood_labels": phase_stencil_only(frames, dev),
-            "refine_offsets": phase_refine_corners(frames, corners, mask,
-                                                   rng, dev)}
-        phase_streaming(argv, traj.cam_t, main_res, main_fps, smi)
-        phase_rotations(argv, traj.cam_t, main_fps, smi)
-        phase_recycling(Path(tmp), dev)
+        # every path runs one chunk: CHUNK frames (the fleet: CHUNK
+        # frames of each stream; recycling: its 12 frames)
+        paths = {"main": main_launches,
+                 "stencil-only": phase_stencil_only(frames, dev),
+                 "refine_corners": phase_refine_corners(frames, corners,
+                                                        mask, rng, dev),
+                 "streaming": phase_streaming(argv, traj.cam_t, main_res,
+                                              main_fps, smi),
+                 "rotations": phase_rotations(argv, traj.cam_t, main_fps,
+                                              smi),
+                 "recycling": phase_recycling(Path(tmp), dev)}
         dist = np.asarray(app.dist_coeffs)
-        phase_fleet(Path(tmp), [
+        paths["fleet"] = phase_fleet(Path(tmp), [
             (f, traj.times, gt, k, dist)
             for f, gt in ((frames, traj.cam_t),
                           (frames[::-1], traj.cam_t[::-1]),
                           (frames2, traj.cam_t),
                           (frames2[::-1], traj.cam_t[::-1]))],
             main_fps, smi)
+    # launches: the main path's, or for B4 and B5 (which the main path
+    # does not run) their own path's
+    own = {"flood_labels": "stencil-only", "refine_offsets": "refine_corners"}
     for k in kernels:
-        k["launches"] = path_launches.get(k["name"], main_launches)[k["name"]]
+        k["launches"] = paths[own.get(k["name"], "main")][k["name"]]
+        k["launches_per_chunk"] = {p: c[k["name"]] for p, c in paths.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

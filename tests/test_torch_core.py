@@ -5,6 +5,9 @@ The same numpy-seeded float32 inputs go through both packages
 f32 by hand). Tolerances are stated beside each comparison.
 """
 
+import ast
+from pathlib import Path
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -275,3 +278,102 @@ def test_io_formats_match_jax(tmp_path):
     assert tate.ate_rmse(est, poses[:, :3]) \
         == pytest.approx(jate.ate_rmse(est, poses[:, :3]), abs=1e-12)
     assert tio.is_video("a.MP4") and not tio.is_video("a.npz")
+
+
+# every baked table of the JAX package (a fixed set of files)
+JAX_TABLES = sorted(p.name for p in (Path(jpnp.__file__).parent / "data")
+                    .glob("*.npy"))
+
+
+@pytest.mark.parametrize("name", JAX_TABLES)
+def test_dictionary_data_is_the_jax_packages(name):
+    """The port ships its own copy of each dictionary table, byte-equal
+    to the JAX package's, and reads it from inside its own package."""
+    from aruco_slam_tpu_torch.ops import dictionary as tdict
+    port_pkg = Path(tdict.__file__).resolve().parents[1]
+    assert tdict.DATA.resolve().is_relative_to(port_pkg)
+    assert (tdict.DATA / name).read_bytes() \
+        == (Path(jpnp.__file__).parent / "data" / name).read_bytes()
+
+
+def test_video_source_matches_jax(tmp_path):
+    """A small MJPG .avi decoded by the port's VideoSource and by the
+    JAX package's: the same frames and timestamps, bit for bit (both
+    take the cv2 route where pyav is not installed)."""
+    import cv2
+    from aruco_slam_tpu.io.sources import VideoSource as JVideo
+    from aruco_slam_tpu_torch import io as tio
+    rng = np.random.default_rng(11)
+    path = tmp_path / "clip.avi"
+    out = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"MJPG"), 25.0,
+                          (96, 64))
+    assert out.isOpened()
+    for _ in range(6):
+        out.write(cv2.GaussianBlur(rng.integers(0, 256, (64, 96, 3),
+                                                dtype=np.uint8), (5, 5), 0))
+    out.release()
+    for size in (None, (48, 32)):
+        src, ref = tio.VideoSource(path, size), JVideo(path, size)
+        assert len(src) == len(ref) == 6
+        got, want = list(src.frames()), list(ref.frames())
+        assert len(got) == len(want) == 6
+        for (ts, g), (ts_j, g_j) in zip(got, want):
+            assert ts == ts_j
+            assert g.dtype == g_j.dtype and np.array_equal(g, g_j)
+    assert [ts for ts, _ in tio.video_frames(path)] == [ts for ts, _ in want]
+
+
+@pytest.mark.parametrize("host_lib", ["native", "numpy"])
+def test_video_source_imageio_route_matches_jax(monkeypatch, host_lib):
+    """The imageio/pyav route (a stand-in imageio.v3 serving RGB frames,
+    since pyav is not installed here): the port's numpy gray+resize gives
+    the frames and timestamps of the JAX VideoSource, whose gray+resize
+    is the native host library where it is built (`native`) and its
+    numpy fallback where it is not (`numpy`)."""
+    import sys
+    import types
+    from aruco_slam_tpu.io import native
+    from aruco_slam_tpu.io.sources import VideoSource as JVideo
+    from aruco_slam_tpu_torch import io as tio
+    rng = np.random.default_rng(12)
+    rgb = rng.integers(0, 256, (5, 67, 101, 3), dtype=np.uint8)
+    rgb[0] = 255  # the largest weighted sum
+    v3 = types.SimpleNamespace(
+        improps=lambda path, plugin: types.SimpleNamespace(shape=rgb.shape),
+        imiter=lambda path, plugin: iter(rgb))
+    monkeypatch.setitem(sys.modules, "imageio",
+                        types.SimpleNamespace(v3=v3))
+    monkeypatch.setitem(sys.modules, "imageio.v3", v3)
+    if host_lib == "numpy":
+        monkeypatch.setattr(native, "get_lib", lambda: None)
+    elif native.get_lib() is None:
+        pytest.skip("the native host library could not be built here")
+    for size in (None, (48, 32), (160, 90)):
+        src, ref = tio.VideoSource("clip.mp4", size), JVideo("clip.mp4", size)
+        assert src._mode == ref._mode == "imageio"
+        assert len(src) == len(ref) == 5
+        got, want = list(src.frames()), list(ref.frames())
+        assert len(got) == len(want) == 5
+        for (ts, g), (ts_j, g_j) in zip(got, want):
+            assert ts == ts_j
+            assert g.dtype == g_j.dtype and np.array_equal(g, g_j)
+
+
+def _imports(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_nothing_of_jax():
+    """No module of the port, and not chip_smoke.py, imports jax or the
+    JAX package (names in docstrings and comments are not imports)."""
+    root = Path(__file__).resolve().parents[1]
+    files = sorted((root / "aruco_slam_tpu_torch").rglob("*.py"))
+    files.append(root / "chip_smoke.py")
+    bad = [(f.name, mod) for f in files
+           for mod in _imports(ast.parse(f.read_text(encoding="utf-8")))
+           if mod.split(".")[0] in ("jax", "jaxlib", "aruco_slam_tpu")]
+    assert len(files) > 20 and not bad

@@ -36,6 +36,49 @@ def test_flood_scan_bit_identical(device, shape, iters, rounds):
     assert torch.equal(got, want)
 
 
+def _serpentine(h, w, transpose=False):
+    """A one-pixel-wide path that runs along every fourth row (or
+    column) and turns at alternate ends, across many warp tiles and scan
+    chunks."""
+    if transpose:
+        return _serpentine(w, h).T
+    fg = np.zeros((h, w), bool)
+    fg[1:h - 1:4, 1:w - 1] = True
+    for k, y in enumerate(range(1, h - 4, 4)):
+        x = w - 2 if k % 2 == 0 else 1
+        fg[y:y + 5, x] = True
+    return fg
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 1001), (1, 1079, 1917)])
+def test_flood_scan_ragged_grids_bit_identical(device, shape):
+    """Grids whose sides cut the warp tiles, the scan chunks and the
+    column groups raggedly."""
+    rng = np.random.default_rng(9)
+    fg = torch.from_numpy(rng.random(shape) < 0.45).to(device)
+    got = cuda_cc.flood_scan_labels(fg, 16, 4)
+    assert torch.equal(got, cuda_cc.flood_scan_labels_plain(fg, 16, 4))
+
+
+@pytest.mark.parametrize("kind", ["all_fg", "all_bg", "serpentine_rows",
+                                  "serpentine_cols"])
+def test_flood_scan_extreme_masks_bit_identical(device, kind):
+    h, w = 403, 1000
+    if kind == "all_fg":
+        fg = np.ones((2, h, w), bool)
+    elif kind == "all_bg":
+        fg = np.zeros((2, h, w), bool)
+    else:
+        fg = _serpentine(h, w, kind == "serpentine_cols")[None]
+    fg = torch.from_numpy(fg).to(device)
+    for iters, rounds in ((16, 4), (32, 2)):
+        got = cuda_cc.flood_scan_labels(fg, iters, rounds)
+        assert torch.equal(got, cuda_cc.flood_scan_labels_plain(
+            fg, iters, rounds))
+    if kind == "all_bg":
+        assert bool((got == h * w).all())
+
+
 @pytest.mark.parametrize("shape,iters", [
     ((3, 48, 64), 16), ((4, 270, 480), 16), ((2, 540, 960), 16),
     ((2, 64, 128), 5), ((1, 33, 47), 0), ((2, 100, 70), 23)])
@@ -181,21 +224,50 @@ def _rel_err(got, want):
                                                  want.abs().max().item())
 
 
-@pytest.mark.parametrize("n,m", [(201, 48), (393, 112)])
+@pytest.mark.parametrize("n,m", [(201, 48), (393, 112), (81, 35),
+                                 (300, 264)])
 def test_fused_update_batched_matches_single_launches(device, n, m):
     """Eight streams in one launch sequence: each stream's innovation and
     covariance bit-equal to its own single-stream launch (the same
-    arithmetic, the stream in blockIdx), and within 1e-4 of the batched
-    plain version; one launch counted."""
+    arithmetic, the stream in blockIdx), within 1e-4 of the batched
+    plain version and exactly symmetric; one launch counted."""
     args = _update_inputs(np.random.default_rng(n), device, n, m, 8)
     before = cuda_mekf.fused_update.launches
     inn, pn = cuda_mekf.fused_update(*args)
     assert cuda_mekf.fused_update.launches == before + 1
     inn_p, pn_p = cuda_mekf.fused_update_plain(*args)
     assert _rel_err(inn, inn_p) <= 1e-4 and _rel_err(pn, pn_p) <= 1e-4
+    assert torch.equal(pn, pn.transpose(-1, -2))
     for i in range(8):
         inn1, pn1 = cuda_mekf.fused_update(*(a[i] for a in args))
         assert torch.equal(inn[i], inn1) and torch.equal(pn[i], pn1)
+
+
+@pytest.mark.parametrize("n,m,path", [
+    (81, 35, "columns"), (201, 81, "columns"), (54, 48, "columns"),
+    (9, 6, "columns"), (201, 128, "columns"), (300, 160, "rows"),
+    (393, 224, "rows"), (300, 256, "rows"), (300, 264, "block"),
+    (450, 448, "block")])
+def test_fused_update_shapes_and_paths(device, n, m, path):
+    """Ragged M (not a multiple of the 8-CTA cluster), the form the
+    kernel takes for each M (column slabs to M = 128, row slabs to 256,
+    the single block above) and every later form forced at the same M:
+    1e-4 relative of the plain version, exactly symmetric."""
+    assert cuda_mekf.newton_schulz_form(m) == path
+    args = _update_inputs(np.random.default_rng(m), device, n, m)
+    inn_p, pn_p = cuda_mekf.fused_update_plain(*args)
+    runs = [cuda_mekf.fused_update(*args)] + [
+        cuda_mekf.fused_update_form(*args, form) for form in
+        cuda_mekf.FORMS[cuda_mekf.FORMS.index(path):]]
+    for inn, pn in runs:
+        assert _rel_err(inn, inn_p) <= 1e-4 and _rel_err(pn, pn_p) <= 1e-4
+        assert torch.equal(pn, pn.T)
+
+
+def test_fused_update_refuses_a_form_that_cannot_take_m(device):
+    args = _update_inputs(np.random.default_rng(0), device, 201, 160)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_mekf.fused_update_form(*args, "columns")
 
 
 def test_fused_update_rotation_size(device):
