@@ -114,13 +114,21 @@ def lib() -> ctypes.CDLL:
     return handle
 
 
-def function(name: str, argtypes: list) -> ctypes._CFuncPtr:
+def function(name: str, argtypes: list,
+             restype=ctypes.c_int) -> ctypes._CFuncPtr:
     """A C entry point with its argument types declared (pointers and
     the stream as c_void_p — an undeclared int argument would be cut
-    to 32 bits)."""
-    fn = getattr(lib(), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    to 32 bits), once for each loaded library: a new `lib` (after
+    ``lib.cache_clear()``) declares its functions anew."""
+    return _declared(lib(), name, tuple(argtypes), restype)
+
+
+@functools.cache
+def _declared(handle: ctypes.CDLL, name: str, argtypes: tuple,
+              restype) -> ctypes._CFuncPtr:
+    fn = getattr(handle, name)
+    fn.argtypes = list(argtypes)
+    fn.restype = restype
     return fn
 
 

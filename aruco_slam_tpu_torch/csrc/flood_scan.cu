@@ -1,13 +1,18 @@
 // Connected-component labeling by min-label flooding: blocks of 3x3
 // min-stencil rounds alternating with segmented row/column min-scans.
 //
-// Replaces the TPU kernel aruco_slam_tpu/ops/pallas_cc.py
-// `_flood_scan_kernel` (wrapper `flood_scan_labels`), which runs the
-// whole schedule of ops/detect.py `_connected_components` with the
-// label image resident in VMEM: `per` Jacobi rounds, then `scan_rounds`
-// times a row scan (forward, then backward on the forward result), a
-// column scan and `per` more rounds. Output is bit-identical to that
-// schedule: labels are integers and every step is a min.
+// Replaces two TPU kernels of aruco_slam_tpu/ops/pallas_cc.py:
+//  * `_flood_scan_kernel` (wrapper `flood_scan_labels`), which runs the
+//    whole schedule of ops/detect.py `_connected_components` with the
+//    label image resident in VMEM: `per` Jacobi rounds, then
+//    `scan_rounds` times a row scan (forward, then backward on the
+//    forward result), a column scan and `per` more rounds
+//    (flood_scan_labels here);
+//  * `_flood_kernel` (wrapper `flood_labels`): `iters` Jacobi rounds
+//    alone, the schedule when scan_rounds == 0 (flood_labels here: the
+//    same stencil launches, at most kStencilOnlyRounds rounds each).
+// Output is bit-identical to that schedule: labels are integers and
+// every step is a min.
 //
 // What bounds it on Hopper: the bound is int32 operations (5 a pixel a
 // stencil round: 2 vertical and 2 horizontal mins and a select; 2 a
@@ -54,6 +59,11 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kTileRows = 32;        // interior rows of a warp tile
 constexpr int kMaxHalo = 8;          // Jacobi rounds (and halo) a launch
+// rounds a launch of the stencil-only schedule: of 16 rounds as 2 x 8,
+// 3 x 5-6 and 4 x 4, 4 x 4 took the least device time on the H100 at
+// (32, 540, 960) and (32, 270, 480) (PERF.md, chip_smoke.py `_b4`): a
+// tile's halo costs more than a pass over the label batch
+constexpr int kStencilOnlyRounds = 4;
 constexpr int kStencilWarps = 8;
 constexpr int kStencilThreads = kStencilWarps * 32;
 constexpr int kScanThreads = 256;    // row scans: 8 rows, a warp each
@@ -324,24 +334,20 @@ int scan_cols_launch(int* labels, int frames, int h, int w,
     return 0;
 }
 
-}  // namespace
-
-// fg: (frames, h, w) uint8 mask (nonzero = foreground); labels:
-// (frames, h, w) int32 output; scratch: the same shape, the stencil
-// launches' ping-pong buffer. marks (may be null): events recorded
-// after the opening stencil block and after each later launch group
-// (row scans, column scans, stencil block).
-extern "C" int flood_scan_labels(const uint8_t* fg, int* labels, int* scratch,
-                                 int frames, int h, int w, int iters,
-                                 int scan_rounds, cudaEvent_t* marks,
-                                 int n_marks, cudaStream_t stream) {
+// The schedule: an opening stencil block of `per` rounds (seeded from
+// the mask), then scan_rounds times row scans, column scans and another
+// block. A block is ceil(per / cap) launches of balanced rounds (per ==
+// 0: one launch that only seeds). marks (may be null): events recorded
+// after the opening block and after each later launch group.
+int run_schedule(const uint8_t* fg, int* labels, int* scratch, int frames,
+                 int h, int w, int iters, int scan_rounds, int cap,
+                 cudaEvent_t* marks, int n_marks, cudaStream_t stream) {
     if (frames == 0) return 0;
-    if (frames > 65535 || iters < 0 || scan_rounds < 0)
+    if (frames > 65535 || iters < 0 || scan_rounds < 0 || cap < 1
+        || cap > kMaxHalo)
         return static_cast<int>(cudaErrorInvalidValue);
     const int per = scan_rounds ? max(1, iters / (scan_rounds + 1)) : iters;
-    // each stencil block: ceil(per / kMaxHalo) launches of balanced
-    // rounds (per == 0: one launch that only seeds)
-    const int per_block = max(1, (per + kMaxHalo - 1) / kMaxHalo);
+    const int per_block = max(1, (per + cap - 1) / cap);
     const int total = per_block * (scan_rounds + 1);
     int* bufs[2] = {labels, scratch};  // the last launch writes labels
     int launched = 0;
@@ -371,4 +377,38 @@ extern "C" int flood_scan_labels(const uint8_t* fg, int* labels, int* scratch,
         aruco_mark(marks, n_marks, mark++, stream);
     }
     return 0;
+}
+
+}  // namespace
+
+// fg: (frames, h, w) uint8 mask (nonzero = foreground); labels:
+// (frames, h, w) int32 output; scratch: the same shape, the stencil
+// launches' ping-pong buffer. marks (may be null): events recorded
+// after the opening stencil block and after each later launch group
+// (row scans, column scans, stencil block).
+extern "C" int flood_scan_labels(const uint8_t* fg, int* labels, int* scratch,
+                                 int frames, int h, int w, int iters,
+                                 int scan_rounds, cudaEvent_t* marks,
+                                 int n_marks, cudaStream_t stream) {
+    return run_schedule(fg, labels, scratch, frames, h, w, iters,
+                        scan_rounds, kMaxHalo, marks, n_marks, stream);
+}
+
+// The stencil-only schedule: `iters` rounds on the raw mask (its 1-px
+// ring cleared in the seeding launch), arguments as above; iters == 0
+// writes the seed labels.
+extern "C" int flood_labels(const uint8_t* fg, int* labels, int* scratch,
+                            int frames, int h, int w, int iters,
+                            cudaStream_t stream) {
+    return run_schedule(fg, labels, scratch, frames, h, w, iters, 0,
+                        kStencilOnlyRounds, nullptr, 0, stream);
+}
+
+// flood_labels at most `cap` (1 to 8) rounds a launch: for timing and
+// testing each split of the rounds.
+extern "C" int flood_labels_split(const uint8_t* fg, int* labels,
+                                  int* scratch, int frames, int h, int w,
+                                  int iters, int cap, cudaStream_t stream) {
+    return run_schedule(fg, labels, scratch, frames, h, w, iters, 0, cap,
+                        nullptr, 0, stream);
 }

@@ -122,8 +122,7 @@ def _launch(cov, h, r_diag, resid, ns_iters, form=0, marks=None,
     n = cov.shape[-1]
     m = h.shape[-2]
     size = _build.function("mekf_update_scratch_floats",
-                           [ctypes.c_int, ctypes.c_int])
-    size.restype = ctypes.c_longlong
+                           [ctypes.c_int, ctypes.c_int], ctypes.c_longlong)
     scratch = torch.empty(streams * size(n, m), dtype=torch.float32,
                           device=cov.device)
     inn = torch.empty(cov.shape[:-1], dtype=torch.float32,

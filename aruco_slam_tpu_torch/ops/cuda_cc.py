@@ -6,8 +6,9 @@ Counterparts of aruco_slam_tpu/ops/pallas_cc.py:
   `_connected_components` schedule of the detector (opening 3x3
   min-stencil block, then `scan_rounds` alternations of segmented
   row/column min-scans and stencil blocks);
-- `flood_labels` (``csrc/flood.cu``): ``iters`` stencil rounds alone,
-  the schedule when ``scan_rounds == 0``.
+- `flood_labels` (``csrc/flood_scan.cu`` too): ``iters`` stencil rounds
+  alone, the schedule when ``scan_rounds == 0``, on the same stencil
+  launches.
 
 `flood_scan_labels_plain` and `flood_labels_plain` are the same
 schedules in PyTorch, written after the reference's XLA path
@@ -134,34 +135,51 @@ def _mask_u8(fg: torch.Tensor, name: str) -> torch.Tensor:
 
 def flood_labels(fg: torch.Tensor, iters: int) -> torch.Tensor:
     """Labels after ``iters`` stencil rounds of a (h, w) or (B, h, w)
-    bool/uint8 mask (its 1-px ring is cleared here).
+    bool/uint8 mask (its 1-px ring counts as background).
 
-    A CUDA tensor launches ``csrc/flood.cu``; a CPU tensor runs
-    `flood_labels_plain`."""
+    A CUDA tensor launches ``csrc/flood_scan.cu``'s stencil-only entry
+    point; a CPU tensor runs `flood_labels_plain`."""
     def run(f):
         if f.device.type == "cpu":
             return flood_labels_plain(f, iters)
-        return _launch_flood(f, iters)
+        out = _launch_flood(f, iters)
+        flood_labels.launches += 1
+        return out
     return _batched(fg, run)
 
 
 flood_labels.launches = 0
 
 
-def _launch_flood(fg: torch.Tensor, iters: int) -> torch.Tensor:
+def flood_labels_split(fg: torch.Tensor, iters: int,
+                       per_launch: int) -> torch.Tensor:
+    """`flood_labels` on a CUDA mask with at most ``per_launch`` (1 to 8)
+    rounds a launch in place of the kernel's own cap
+    (``kStencilOnlyRounds``), for timing and testing each split of the
+    rounds; not counted in ``flood_labels.launches``."""
+    return _batched(fg, lambda f: _launch_flood(f, iters, per_launch))
+
+
+def _launch_flood(fg: torch.Tensor, iters: int,
+                  per_launch: int | None = None) -> torch.Tensor:
     if iters < 0:
         raise ValueError(f"flood_labels: iters {iters} < 0")
-    cleared = _clear_border(_mask_u8(fg, "flood_labels"))
-    labels = torch.empty(cleared.shape, dtype=torch.int32,
-                         device=fg.device)
+    fg_u8 = _mask_u8(fg, "flood_labels")
+    b, h, w = fg_u8.shape
+    if b > 65535:
+        raise ValueError(f"flood_labels: {b} frames > 65535")
+    labels = torch.empty((b, h, w), dtype=torch.int32, device=fg.device)
     scratch = torch.empty_like(labels)
-    b, h, w = cleared.shape
-    fn = _build.function("flood_labels", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    _build.call(fn, _build.ptr(cleared), _build.ptr(labels),
-                _build.ptr(scratch), b, h, w, iters, _build.stream())
-    flood_labels.launches += 1
+    args = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+    if per_launch is None:
+        fn = _build.function("flood_labels", args + [ctypes.c_void_p])
+        extra = ()
+    else:
+        fn = _build.function("flood_labels_split",
+                             args + [ctypes.c_int, ctypes.c_void_p])
+        extra = (per_launch,)
+    _build.call(fn, _build.ptr(fg_u8), _build.ptr(labels),
+                _build.ptr(scratch), b, h, w, iters, *extra, _build.stream())
     return labels
 
 

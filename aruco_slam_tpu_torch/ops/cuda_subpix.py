@@ -20,6 +20,7 @@ to 2e-3 px, the bound the JAX package holds its own two backends to).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -155,53 +156,58 @@ def refine_corners(image: torch.Tensor, corners: torch.Tensor,
 
 refine_corners.launches = 0
 
-
-# half, iters, sigma2, drift arrays and the stage count
-_SCHEDULE_ARGTYPES = [
+_SCHEDULE_ARGTYPES = [  # half, iters, sigma2, drift, stages
     ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
     ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
     ctypes.c_int]
+_ARGTYPES = {
+    "subpix_refine_u8": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+    + _SCHEDULE_ARGTYPES + [ctypes.c_void_p],
+    "subpix_offsets": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+    + _SCHEDULE_ARGTYPES + [ctypes.c_void_p]}
+_ARGTYPES["subpix_refine_f32"] = _ARGTYPES["subpix_refine_u8"]
+_ENTRIES = {torch.uint8: "subpix_refine_u8",
+            torch.float32: "subpix_refine_f32"}
 
 
-def _schedule_args(sched):
+@functools.cache
+def _schedule(schedule: tuple[tuple[int, int], ...]):
+    """rad and the C schedule arguments (half, iters, sigma2 and drift
+    arrays, the stage count) of a schedule, built once; raises on a
+    schedule the kernels do not take."""
+    rad, sched = schedule_params(schedule)
+    if not 1 <= len(sched) <= 4:
+        raise ValueError(f"subpix: {len(sched)} schedule stages (1 to 4)")
+    if any(s[0] < 0 for s in sched):
+        raise ValueError(f"subpix: schedule {schedule}: a negative half "
+                         "window")
     k = len(sched)
-    return ((ctypes.c_int * k)(*(s[0] for s in sched)),
-            (ctypes.c_int * k)(*(s[1] for s in sched)),
-            (ctypes.c_float * k)(*(s[2] for s in sched)),
-            (ctypes.c_float * k)(*(float(s[3]) for s in sched)), k)
+    return rad, ((ctypes.c_int * k)(*(s[0] for s in sched)),
+                 (ctypes.c_int * k)(*(s[1] for s in sched)),
+                 (ctypes.c_float * k)(*(s[2] for s in sched)),
+                 (ctypes.c_float * k)(*(float(s[3]) for s in sched)), k)
 
 
 def _launch(image, corners, schedule):
     b, h, w = image.shape
-    rad, sched = schedule_params(schedule)
-    if len(sched) > 4:
-        raise ValueError("refine_corners: at most 4 schedule stages")
+    rad, args = _schedule(tuple(map(tuple, schedule)))
     if h < 2 * rad + 1 or w < 2 * rad + 1:
         raise ValueError(f"refine_corners: {h}x{w} frame is smaller "
                          f"than the {2 * rad + 1}-px patch")
-    if image.dtype == torch.uint8:
-        entry = "subpix_refine_u8"
-    elif image.dtype == torch.float32:
-        entry = "subpix_refine_f32"
-    else:
+    entry = _ENTRIES.get(image.dtype)
+    if entry is None:
         raise ValueError(f"refine_corners: image dtype {image.dtype} "
                          "(uint8 or float32)")
     image = image.contiguous()
     corners = corners.to(torch.float32).contiguous()
     _build.check_cuda("image", image, image.dtype, 3)
-    _build.check_cuda("corners", corners, torch.float32, 3)
     if corners.device != image.device:
         raise ValueError("refine_corners: image and corners on different "
                          "devices")
     out = torch.empty_like(corners)
-    n = corners.shape[1]
-    fn = _build.function(entry, [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        *_SCHEDULE_ARGTYPES, ctypes.c_void_p])
-    _build.call(fn, _build.ptr(image), _build.ptr(corners),
-                _build.ptr(out), b, n, h, w, rad, *_schedule_args(sched),
-                _build.stream())
+    _build.call(_build.function(entry, _ARGTYPES[entry]), image.data_ptr(),
+                corners.data_ptr(), out.data_ptr(), b, corners.shape[1], h, w,
+                rad, *args, _build.stream())
     refine_corners.launches += 1
     return out
 
@@ -215,7 +221,7 @@ def refine_offsets(patches: torch.Tensor, c0: torch.Tensor,
 
     A CUDA tensor launches ``csrc/subpix.cu``'s patch-fed kernel; a CPU
     tensor runs `refine_offsets_plain`."""
-    rad, sched = schedule_params(schedule)
+    rad, _ = schedule_params(schedule)
     p = 2 * rad + 1
     n = patches.shape[0]
     if patches.shape != (n, p, p) or c0.shape != (n, 2):
@@ -224,8 +230,7 @@ def refine_offsets(patches: torch.Tensor, c0: torch.Tensor,
                          f"({p}, {p}) patches")
     if patches.device.type == "cpu":
         return refine_offsets_plain(patches, c0, schedule)
-    if len(sched) > 4:
-        raise ValueError("refine_offsets: at most 4 schedule stages")
+    _, args = _schedule(tuple(map(tuple, schedule)))
     patches = patches.contiguous()
     c0 = c0.contiguous()
     _build.check_cuda("patches", patches, torch.float32, 3)
@@ -234,11 +239,9 @@ def refine_offsets(patches: torch.Tensor, c0: torch.Tensor,
         raise ValueError("refine_offsets: patches and c0 on different "
                          "devices")
     out = torch.empty_like(c0)
-    fn = _build.function("subpix_offsets", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, *_SCHEDULE_ARGTYPES, ctypes.c_void_p])
-    _build.call(fn, _build.ptr(patches), _build.ptr(c0), _build.ptr(out),
-                n, rad, *_schedule_args(sched), _build.stream())
+    _build.call(_build.function("subpix_offsets", _ARGTYPES["subpix_offsets"]),
+                patches.data_ptr(), c0.data_ptr(), out.data_ptr(), n, rad,
+                *args, _build.stream())
     refine_offsets.launches += 1
     return out
 

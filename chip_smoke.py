@@ -13,13 +13,16 @@ non-zero, and no result line is printed):
 3. kernels    — each kernel's wrapper against its plain PyTorch version
                 on the card, at its path's shapes, with the stated
                 tolerance: B1 labeling, B2 subpixel refinement (the
-                detector's schedule and the tracker's three), B3 MEKF
+                detector's schedule and the tracker's three over the
+                chunk, and the tracker's real call, one frame x 64
+                corners; each also without iterations), B3 MEKF
                 update (point mode N = 201, M = 48; rotation mode N =
                 393, M = 112, and M = 224 at --max-obs 32; and 8
                 streams in one batched launch
                 against the plain version and against 8 single-stream
                 launches; P' exactly symmetric; which Newton–Schulz
-                path the C entry point took), B4 stencil-only labeling,
+                path the C entry point took), B4 stencil-only labeling
+                (also forced to at most 8, 6 and 4 rounds a launch),
                 B5 patch-fed refinement. Times: `ms` and `plain_ms` are
                 the median of one call on an idle card (host time
                 between launches included), `device_ms` and
@@ -89,6 +92,7 @@ B3_TOL = 1e-4         # f32 gain chain in another summation order
                       # (relative to the largest entry, at least 1)
 B4_TOL = 0            # labels are integers: bit-identical
 B5_TOL = 2e-3         # px: B2's loop on gathered patches, as B2
+B4_SPLITS = (8, 6, 4)  # B4's most rounds a launch, checked and timed
 SIZE = (1920, 1080)   # frame width, height
 TRACK_EVERY = 8       # the streaming path's K
 STREAMS = 8           # the fleet path's streams: 4 sequences, each twice
@@ -290,58 +294,88 @@ def _seeds(corners_true, mask_true, rng, per_frame: int, jitter: float):
     return seeds.astype("float32"), n_true
 
 
-def _subpix_bound(n: int, sched, elem: int):
-    """Bound of refining n corners: per patch pixel ~6 flops of
-    gradients and ~20 per iteration (offsets, window test, exp, five
-    products and sums) over the whole p x p patch, as the reference
-    computes it; each corner's patch (elem bytes a pixel) and seed read
-    once, its corner written once."""
+def _subpix_work(n: int, sched, elem: int):
+    """(FLOPs, bytes) that refining n corners needs: per corner 6 flops
+    an interior patch pixel (gradients and projection) and 12 a window
+    pixel an iteration (weight x gx and x gy, five multiply-adds) over
+    the (2 half + 1)^2 pixels of each stage's window; the patch (elem
+    bytes a pixel) read once, the 8-byte seed in and corner out."""
     from aruco_slam_tpu_torch.ops import cuda_subpix
     rad, _ = cuda_subpix.schedule_params(sched)
-    pp = (2 * rad + 1) ** 2
-    iters = sum(it for _, it in sched)
-    return bound(n * pp * (6 + 20 * iters), n * (pp * elem + 16), F32_PEAK)
+    p = 2 * rad + 1
+    window = sum(it * (2 * half + 1) ** 2 for half, it in sched)
+    return n * (6 * (p - 2) ** 2 + 12 * window), n * (p * p * elem + 16)
 
 
-def _b2(frames, corners_true, mask_true, rng, dev):
+def _subpix_bound(n: int, sched, elem: int):
+    return bound(*_subpix_work(n, sched, elem), F32_PEAK)
+
+
+def _b2_case(img, c, sched, tag: str) -> dict:
+    """B2 against its plain version at one shape: the error (raises over
+    B2_TOL), the times, the bound, and the device time of the launch
+    without iterations."""
     import numpy as np
     import torch
     from aruco_slam_tpu_torch.ops import cuda_subpix
-    t, h, w = frames.shape
+    got = cuda_subpix.refine_corners(img, c, sched)
+    want = cuda_subpix.refine_corners_plain(img, c, sched)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    t = timings(lambda: cuda_subpix.refine_corners(img, c, sched),
+                lambda: cuda_subpix.refine_corners_plain(img, c, sched),
+                plain_reps=10)
+    fixed = iter_us = None
+    if img.is_cuda:
+        # the same launch with no iteration (the same patch: rad depends
+        # on the halves alone): gather, gradients, tables and the launch
+        bare = tuple((half, 0) for half, _ in sched)
+        fixed = device_ms(lambda: cuda_subpix.refine_corners(img, c, bare))
+        iter_us = (t["device_ms"] - fixed) / sum(
+            it for _, it in sched) * 1e3
+    rad, _ = cuda_subpix.schedule_params(sched)
+    b_ms, b_by = _subpix_bound(c.shape[0] * c.shape[1], sched, 1)
+    h, w = img.shape[1:]
+    log(f"[B2] refine_corners {tuple(c.shape)} schedule {sched} (p = "
+        f"{2 * rad + 1}, {tag}) on {h}x{w} uint8: max |kernel - plain| "
+        f"{err:.3e} px (tol {B2_TOL}); {_fmt_t(t)}, bound {b_ms:.5f} ms "
+        f"({b_by}); without iterations {fixed} ms device, an iteration "
+        f"{iter_us} us")
+    if not np.isfinite(err) or err > B2_TOL:
+        raise AssertionError(f"B2 differs from its plain version at "
+                             f"{sched} ({tag}): {err}")
+    return {"shape": list(c.shape), "schedule": sched, "max_abs_err": err,
+            **t, "bound_ms": b_ms, "bound_by": b_by,
+            "no_iterations_device_ms": fixed, "iteration_us": iter_us}
+
+
+def _b2(frames, corners_true, mask_true, rng, dev):
+    import torch
     img = torch.from_numpy(frames).to(dev)
     # 384 seeds per frame (32 candidates x 3 passes x 4 corners): the
     # true corners perturbed like coarse-grid quad seeds, the rest
-    # anywhere in the frame; the tracker pulls <= 64 corners per frame
-    # (16 tracked slots) with its three schedules
-    cases = [(DETECTOR_SCHED, 384)] + [(s, 64) for s in TRACKER_SCHEDS]
-    worst = 0.0
-    timing = None
-    for sched, per_frame in cases:
+    # anywhere in the frame; the tracker pulls <= 64 corners (16 tracked
+    # slots) of one frame a call with each of its three schedules, here
+    # also batched over the chunk's frames
+    shapes = []
+    for sched, per_frame in [(DETECTOR_SCHED, 384)] + [
+            (s, 64) for s in TRACKER_SCHEDS]:
         seeds, _ = _seeds(corners_true, mask_true, rng, per_frame, 3.0)
-        c = torch.from_numpy(seeds).to(dev)
-        got = cuda_subpix.refine_corners(img, c, sched)
-        want = cuda_subpix.refine_corners_plain(img, c, sched)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        worst = max(worst, err)
-        t = timings(lambda: cuda_subpix.refine_corners(img, c, sched),
-                    lambda: cuda_subpix.refine_corners_plain(img, c, sched),
-                    plain_reps=10)
-        rad, _ = cuda_subpix.schedule_params(sched)
-        b_ms, b_by = _subpix_bound(c.shape[0] * c.shape[1], sched, 1)
-        log(f"[B2] refine_corners {tuple(c.shape)} schedule {sched} (p = "
-            f"{2 * rad + 1}) on {h}x{w} uint8: max |kernel - plain| "
-            f"{err:.3e} px (tol {B2_TOL}); {_fmt_t(t)}, bound {b_ms:.4f} "
-            f"ms ({b_by})")
-        if not np.isfinite(err) or err > B2_TOL:
-            raise AssertionError(f"B2 differs from its plain version at "
-                                 f"{sched}: {err}")
-        if timing is None:
-            timing = {**t, "bound_ms": b_ms, "bound_by": b_by}
+        shapes.append(_b2_case(img, torch.from_numpy(seeds).to(dev), sched,
+                               "chunk"))
+    seeds, _ = _seeds(corners_true[:1], mask_true[:1], rng, 64, 3.0)
+    c = torch.from_numpy(seeds).to(dev)
+    for sched in TRACKER_SCHEDS:
+        shapes.append(_b2_case(img[:1], c, sched, "a tracker pull"))
+    main = shapes[0]
     return {"name": "refine_corners", "route": "cuda",
             "source": "aruco_slam_tpu_torch/csrc/subpix.cu",
             "replaces": "aruco_slam_tpu/ops/pallas_subpix.py:92",
-            "max_abs_err": worst, **timing, "library_ms": None}
+            "max_abs_err": max(s["max_abs_err"] for s in shapes),
+            **{k: main[k] for k in ("ms", "device_ms", "plain_ms",
+                                    "plain_device_ms", "bound_ms",
+                                    "bound_by")},
+            "library_ms": None, "shapes": shapes}
 
 
 def _b4(rng, dev):
@@ -349,34 +383,56 @@ def _b4(rng, dev):
     from aruco_slam_tpu_torch.ops import cuda_cc
     # the stencil-only schedule (scan_rounds 0) on run_slam's grids at
     # 1080p and on the fine grid of 4K input, at the fine pass's 16
-    # rounds
+    # rounds; each split of the rounds into launches (at most 8, 6 and 4
+    # a launch) checked and timed beside the entry point's own
     cases = [(CHUNK, 270, 480), (CHUNK, 540, 960), (2, 1080, 1920)]
     iters = 16
     worst = 0
-    timing = None
+    shapes = []
     for shape in cases:
         fg = torch.from_numpy(rng.random(shape) < 0.45).to(dev)
-        got = cuda_cc.flood_labels(fg, iters)
         want = cuda_cc.flood_labels_plain(fg, iters)
+        got = cuda_cc.flood_labels(fg, iters)
         torch.cuda.synchronize()
         bad = int((got != want).sum())
-        worst = max(worst, bad)
         t = timings(lambda: cuda_cc.flood_labels(fg, iters),
                     lambda: cuda_cc.flood_labels_plain(fg, iters),
                     plain_reps=10)
+        splits = {}
+        if dev.type == "cuda":
+            for cap in B4_SPLITS:
+                def run(cap=cap):
+                    return cuda_cc.flood_labels_split(fg, iters, cap)
+                bad = max(bad, int((run() != want).sum()))
+                splits[cap] = {"ms": call_ms(run),
+                               "device_ms": device_ms(run)}
+        worst = max(worst, bad)
         px = shape[0] * shape[1] * shape[2]
         b_ms, b_by = bound(px * STENCIL_OPS * iters, px * 5, INT32_PEAK)
         log(f"[B4] flood_labels {shape} iters {iters}: {bad} labels "
-            f"differ; {_fmt_t(t)}, bound {b_ms:.4f} ms ({b_by})")
+            f"differ; {_fmt_t(t)}, bound {b_ms:.4f} ms ({b_by}); at most n "
+            f"rounds a launch (ms a call / device) "
+            + ", ".join(f"{k} {v['ms']:.4f} / {v['device_ms']:.4f}"
+                        for k, v in splits.items()))
         if bad > B4_TOL:
             raise AssertionError(f"B4 differs from its plain version at "
                                  f"{shape}: {bad} labels")
-        if shape[1:] == (540, 960):
-            timing = {**t, "bound_ms": b_ms, "bound_by": b_by}
+        shapes.append({"shape": list(shape), **t, "bound_ms": b_ms,
+                       "bound_by": b_by, "splits": splits})
+    fastest = [min(s["splits"], key=lambda k: s["splits"][k]["device_ms"])
+               for s in shapes if s["splits"]]
+    log(f"[B4] fastest split (device ms) at each shape: {fastest}; the "
+        f"entry point's own: "
+        + ", ".join(f"{s['device_ms']:.4f}" for s in shapes) + " ms")
+    main = shapes[1]  # (CHUNK, 540, 960): the fine pass
     return {"name": "flood_labels", "route": "cuda",
-            "source": "aruco_slam_tpu_torch/csrc/flood.cu",
+            "source": "aruco_slam_tpu_torch/csrc/flood_scan.cu",
             "replaces": "aruco_slam_tpu/ops/pallas_cc.py:39",
-            "max_abs_err": float(worst), **timing, "library_ms": None}
+            "max_abs_err": float(worst),
+            **{k: main[k] for k in ("ms", "device_ms", "plain_ms",
+                                    "plain_device_ms", "bound_ms",
+                                    "bound_by")},
+            "library_ms": None, "shapes": shapes}
 
 
 def _b5(frames, corners_true, mask_true, rng, dev):

@@ -92,6 +92,43 @@ def test_flood_labels_bit_identical(device, shape, iters):
     assert torch.equal(got, want)
 
 
+def _stencil_masks(kind):
+    """B1's grids and extreme masks for the stencil-only schedule."""
+    rng = np.random.default_rng(10)
+    if kind == "ragged_small":
+        return rng.random((3, 37, 1001)) < 0.45
+    if kind == "ragged_large":
+        return rng.random((1, 1079, 1917)) < 0.45
+    if kind == "all_fg":
+        return np.ones((2, 403, 1000), bool)
+    if kind == "all_bg":
+        return np.zeros((2, 403, 1000), bool)
+    return _serpentine(403, 1000, kind == "serpentine_cols")[None]
+
+
+@pytest.mark.parametrize("per_launch", [None, 8, 6, 4])
+@pytest.mark.parametrize("kind", ["ragged_small", "ragged_large", "all_fg",
+                                  "all_bg", "serpentine_rows",
+                                  "serpentine_cols"])
+def test_flood_labels_masks_and_splits_bit_identical(device, kind,
+                                                     per_launch):
+    """The stencil-only schedule on B1's register warp tiles: ragged
+    grids and extreme masks, at the entry point's own rounds a launch
+    (None, counted once) and forced to at most 8, 6 and 4 (not
+    counted)."""
+    fg = torch.from_numpy(_stencil_masks(kind)).to(device)
+    before = cuda_cc.flood_labels.launches
+    for iters in (16, 13):
+        if per_launch is None:
+            got = cuda_cc.flood_labels(fg, iters)
+        else:
+            got = cuda_cc.flood_labels_split(fg, iters, per_launch)
+        assert torch.equal(got, cuda_cc.flood_labels_plain(fg, iters))
+    assert cuda_cc.flood_labels.launches == before + 2 * (per_launch is None)
+    if kind == "all_bg":
+        assert bool((got == fg.shape[1] * fg.shape[2]).all())
+
+
 def _smooth_image(rng, device, dtype=torch.uint8):
     img = torch.from_numpy(rng.integers(0, 256, (2, 240, 320),
                                         dtype=np.uint8)).to(device)
@@ -113,6 +150,86 @@ def test_subpix_schedules_match_plain(device, schedule):
     got = cuda_subpix.refine_corners(img, seeds, schedule)
     want = cuda_subpix.refine_corners_plain(img, seeds, schedule)
     assert (got - want).abs().max().item() <= 2e-3  # px, reassociation
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES[1:4])
+def test_subpix_tracker_pull_matches_plain(device, schedule):
+    """B2 at the tracker's real call: one frame, 64 corners (16 slots x
+    4), each of its three schedules; one launch counted."""
+    rng = np.random.default_rng(12)
+    img = _smooth_image(rng, device)[:1]
+    seeds = torch.tensor(rng.uniform([0, 0], [319, 239], (1, 64, 2)),
+                         dtype=torch.float32, device=device)
+    before = cuda_subpix.refine_corners.launches
+    got = cuda_subpix.refine_corners(img, seeds, schedule)
+    assert cuda_subpix.refine_corners.launches == before + 1
+    want = cuda_subpix.refine_corners_plain(img, seeds, schedule)
+    assert (got - want).abs().max().item() <= 2e-3
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES)
+def test_subpix_at_the_patch_edge_matches_plain(device, schedule):
+    """B2 on corners within rad of the frame border (the patch clipped
+    into the frame, the start clipped to +-(rad - 1)) and B5 from start
+    offsets of exactly +-(rad - 1): the first window leaves the gradient
+    interior and is clamped."""
+    rng = np.random.default_rng(13)
+    img = _smooth_image(rng, device)
+    rad, _ = cuda_subpix.schedule_params(schedule)
+    h, w = img.shape[1:]
+    near = rng.uniform(-2.0, rad, (2, 48, 2))
+    far = np.array([w - 1, h - 1]) - rng.uniform(-2.0, rad, (2, 48, 2))
+    pick = rng.random((2, 48, 2)) < 0.5
+    edge = np.where(pick, near, far)
+    inner = rng.uniform([0, 0], [w - 1, h - 1], (2, 48, 2))
+    edge[:, ::2, 1] = inner[:, ::2, 1]   # one side at the border
+    seeds = torch.tensor(edge, dtype=torch.float32, device=device)
+    want = cuda_subpix.refine_corners_plain(img, seeds, schedule)
+    got = cuda_subpix.refine_corners(img, seeds, schedule)
+    assert (got - want).abs().max().item() <= 2e-3
+    p = 2 * rad + 1
+    patches, _, _ = cuda_subpix.gather_patches(img, seeds, rad)
+    patches = patches.reshape(-1, p, p)
+    lim = float(rad - 1)
+    signs = torch.tensor(rng.choice([-1.0, 1.0], (patches.shape[0], 2)),
+                         dtype=torch.float32, device=device)
+    c0 = signs * lim
+    c0[::3, 0] = torch.tensor(rng.uniform(-lim, lim, c0[::3].shape[0]),
+                              dtype=torch.float32, device=device)
+    got = cuda_subpix.refine_offsets(patches, c0, schedule)
+    want = cuda_subpix.refine_offsets_plain(patches, c0, schedule)
+    assert (got - want).abs().max().item() <= 2e-3
+
+
+@pytest.mark.parametrize("schedule", [
+    SCHEDULES[0],
+    ((16, 3),),         # a window wider than a warp: 33 columns
+    ((24, 2),),         # a patch wider than three warps: p = 99
+    ((0, 2), (4, 3))])  # half 0: a 0/0 weight, no step (as the reference)
+@pytest.mark.parametrize("frames,corners", [(1, 64), (2, 512)])
+def test_subpix_any_half_and_launch_size_match_plain(device, schedule,
+                                                     frames, corners):
+    """B2 and B5 at any half window the patch fits in shared memory,
+    at a tracker pull's launch size (4 corners a block) and at a
+    detector's (8 a block), each counted once."""
+    rng = np.random.default_rng(14)
+    img = _smooth_image(rng, device)[:frames]
+    seeds = torch.tensor(rng.uniform([0, 0], [319, 239],
+                                     (frames, corners, 2)),
+                         dtype=torch.float32, device=device)
+    before = cuda_subpix.refine_corners.launches
+    got = cuda_subpix.refine_corners(img, seeds, schedule)
+    assert cuda_subpix.refine_corners.launches == before + 1
+    want = cuda_subpix.refine_corners_plain(img, seeds, schedule)
+    assert (got - want).abs().max().item() <= 2e-3
+    rad, _ = cuda_subpix.schedule_params(schedule)
+    p = 2 * rad + 1
+    patches, cx0, cy0 = cuda_subpix.gather_patches(img, seeds, rad)
+    c0 = cuda_subpix.start_offsets(seeds, cx0, cy0, rad)
+    patches, c0 = patches.reshape(-1, p, p), c0.reshape(-1, 2)
+    got = cuda_subpix.refine_offsets(patches, c0, schedule)
+    want = cuda_subpix.refine_offsets_plain(patches, c0, schedule)
+    assert (got - want).abs().max().item() <= 2e-3
 
 
 @pytest.mark.parametrize("schedule", SCHEDULES)
@@ -316,6 +433,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(device):
         cuda_subpix.refine_corners(img, torch.zeros((1, 4, 2),
                                                     device=device),
                                    ((6, 6),))
+    img = torch.zeros((1, 200, 200), dtype=torch.uint8, device=device)
+    with pytest.raises(ValueError):  # a negative half window
+        cuda_subpix.refine_corners(img, torch.zeros((1, 4, 2),
+                                                    device=device),
+                                   ((-1, 2),))
+    with pytest.raises(RuntimeError):  # p = 163: over the shared memory
+        cuda_subpix.refine_corners(img, torch.zeros((1, 4, 2),
+                                                    device=device),
+                                   ((40, 1),))
     cov = torch.eye(6, device=device)
     with pytest.raises(ValueError):
         cuda_mekf.fused_update(cov.double(), torch.zeros((3, 6),

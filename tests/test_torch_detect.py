@@ -7,6 +7,8 @@ the port runs its kernels' plain versions; the JAX side runs its XLA
 paths, or the Pallas kernel in interpret mode where stated.
 """
 
+import itertools
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -140,6 +142,120 @@ def test_refine_offsets_plain_matches_interpret(rendered, schedule):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-3)
     with pytest.raises(ValueError):
         cuda_subpix.refine_offsets(patches[0][:, 1:, 1:], c0, schedule)
+
+
+def _refine_window_only(patch, c, schedule, clamped):
+    """One patch through the refinement as ``csrc/subpix.cu`` sums it:
+    each iteration over the (2 half + 1)^2 window alone, clamped to the
+    gradient interior [1, p - 2], with its weights from the stage's
+    table (the reference's expression on integer offsets). Appends
+    (stage, iteration) to ``clamped`` where the clamp cut the window."""
+    rad, sched = cuda_subpix.schedule_params(schedule)
+    p = 2 * rad + 1
+    gx = torch.zeros(p, p)
+    gy = torch.zeros(p, p)
+    gx[1:-1, 1:-1] = 0.5 * (patch[1:-1, 2:] - patch[1:-1, :-2])
+    gy[1:-1, 1:-1] = 0.5 * (patch[2:, 1:-1] - patch[:-2, 1:-1])
+    off = torch.arange(p, dtype=torch.float32) - rad
+    proj = gx * off[None, :] + gy * off[:, None]
+    cx, cy = c[0].clone(), c[1].clone()
+    for s, (half, iters, sigma2, drift) in enumerate(sched):
+        d = torch.arange(-half, half + 1, dtype=torch.float32)
+        table = torch.exp(-0.5 * (d[None, :] ** 2 + d[:, None] ** 2)
+                          / sigma2)
+        for it in range(iters):
+            ox = rad + int(torch.round(cx)) - half
+            oy = rad + int(torch.round(cy)) - half
+            c0, c1 = max(ox, 1), min(ox + 2 * half, p - 2) + 1
+            r0, r1 = max(oy, 1), min(oy + 2 * half, p - 2) + 1
+            if (c0, c1, r0, r1) != (ox, ox + 2 * half + 1, oy,
+                                    oy + 2 * half + 1):
+                clamped.append((s, it))
+            c1, r1 = max(c0, c1), max(r0, r1)
+            wgt = table[r0 - oy:r1 - oy, c0 - ox:c1 - ox]
+            g_x, g_y = gx[r0:r1, c0:c1], gy[r0:r1, c0:c1]
+            pj = proj[r0:r1, c0:c1]
+            wgx, wgy = wgt * g_x, wgt * g_y
+            wxx, wxy = (wgx * g_x).sum(), (wgx * g_y).sum()
+            wyy = (wgy * g_y).sum()
+            bx, by = (wgx * pj).sum(), (wgy * pj).sum()
+            det = wxx * wyy - wxy * wxy
+            nx, ny = cx, cy
+            if torch.abs(det) > 1e-9:
+                nx = (wyy * bx - wxy * by) / det
+                ny = (wxx * by - wxy * bx) / det
+            nx = torch.clamp(nx, cx - half, cx + half)
+            ny = torch.clamp(ny, cy - half, cy + half)
+            cx = torch.clamp(nx, -drift, drift)
+            cy = torch.clamp(ny, -drift, drift)
+    return torch.stack([cx, cy])
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES + [((16, 3),), ((24, 2),)])
+def test_window_only_refinement_matches_plain(rendered, schedule):
+    """The kernel's design, in PyTorch: summing only the clamped window
+    with a weight table a stage gives the plain loop's offsets (1e-5 px:
+    the same terms in another order), on the rendered corners and on
+    start offsets of exactly +-(rad - 1), whose first window the clamp
+    cuts; the clamp cuts no later window. Also at windows wider than a
+    warp (half 16) and patches wider than three (p = 99)."""
+    frames, corners, mask = rendered
+    rng = np.random.default_rng(11)
+    seeds = np.concatenate([corners[2][mask[2]].reshape(-1, 2),
+                            rng.uniform([40, 40], [920, 500], (6, 2))])
+    seeds = (seeds + rng.uniform(-3, 3, seeds.shape)).astype(np.float32)
+    rad, _ = cuda_subpix.schedule_params(schedule)
+    pts = torch.tensor(seeds[None])
+    patches, cx0, cy0 = cuda_subpix.gather_patches(
+        torch.tensor(frames[2:3]), pts, rad)
+    patches = patches[0]
+    c0 = cuda_subpix.start_offsets(pts, cx0, cy0, rad)[0]
+    edge = float(rad - 1)
+    corners4 = torch.tensor([[edge, edge], [-edge, edge], [edge, -edge],
+                             [-edge, -edge]])
+    patches = torch.cat([patches, patches[:4]])
+    c0 = torch.cat([c0, corners4])
+    want = cuda_subpix.refine_offsets_plain(patches, c0, schedule)
+    clamped = []
+    got = torch.stack([_refine_window_only(pt, c, schedule, clamped)
+                       for pt, c in zip(patches, c0)])
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+    assert (0, 0) in clamped and set(clamped) == {(0, 0)}
+
+
+def test_windows_lie_inside_after_the_first_iteration():
+    """For every schedule of 1-4 stages with halves 1-8, every window
+    after the first iteration of the first stage lies inside the
+    gradient interior [1, p - 2], stage changes included: the estimate
+    entering an iteration is clipped to its stage's drift or the previous
+    stage's, and `schedule_params` keeps drift + half <= rad - 1 for both.
+    Checked on the derived numbers of all 4680 schedules, and on 40
+    seeded refinement runs from starts anywhere in the first window's
+    range."""
+    count = 0
+    for stages in range(1, 5):
+        for halves in itertools.product(range(1, 9), repeat=stages):
+            rad, sched = cuda_subpix.schedule_params(
+                tuple((half, 1) for half in halves))
+            for s, (half, _, _, drift) in enumerate(sched):
+                assert drift + half <= rad - 1
+                if s:
+                    assert sched[s - 1][3] + half <= rad - 1
+            count += 1
+    assert count == 8 + 8 ** 2 + 8 ** 3 + 8 ** 4
+    rng = np.random.default_rng(15)
+    for _ in range(40):
+        schedule = tuple((int(rng.integers(1, 9)), int(rng.integers(1, 6)))
+                         for _ in range(rng.integers(1, 5)))
+        rad, _ = cuda_subpix.schedule_params(schedule)
+        p = 2 * rad + 1
+        patch = torch.tensor(rng.integers(0, 256, (p, p)),
+                             dtype=torch.float32)
+        c = torch.tensor(rng.uniform(-1.0, 1.0, 2),
+                         dtype=torch.float32) * (rad - 1)
+        clamped = []
+        _refine_window_only(patch, c, schedule, clamped)
+        assert set(clamped) <= {(0, 0)}
 
 
 def test_subpix_plain_matches_interpret(rendered):

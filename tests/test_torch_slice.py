@@ -244,6 +244,32 @@ def test_port_imports_no_jax():
     assert proc.stdout.strip() == "ok"
 
 
+@pytest.mark.parametrize("schedule,elem,want", [
+    # 6 flops x 25^2 interior pixels + 12 x (6 x 13^2 + 4 x 7^2) window
+    # pixel-iterations; 27^2 bytes of patch + 16 of seed and corner
+    (((6, 6), (3, 4)), 1, (18270, 745)),
+    (((6, 6), (3, 4)), 4, (18270, 2932)),
+    # 6 x 33^2 + 12 x 6 x 17^2; 35^2 + 16
+    (((8, 6),), 1, (27342, 1241))])
+def test_subpix_bound_counts_the_window(schedule, elem, want):
+    """chip_smoke.py's B2/B5 bound counts the work the inputs need (the
+    window's pixels, not the whole patch, each iteration): pinned per
+    corner and at the detector's 32 x 384 corners."""
+    proc = _python(["-c", (
+        "import chip_smoke as c\n"
+        f"print(c._subpix_work(1, {schedule!r}, {elem}))\n"
+        f"print(c._subpix_work(12288, {schedule!r}, {elem}))\n"
+        f"print(c._subpix_bound(12288, {schedule!r}, {elem}))\n")])
+    assert proc.returncode == 0, proc.stderr
+    one, chunk, bound = (eval(line) for line in proc.stdout.splitlines())
+    assert one == want
+    assert chunk == (12288 * want[0], 12288 * want[1])
+    ops_ms = 12288 * want[0] / 67e12 * 1e3
+    bytes_ms = 12288 * want[1] / 3.35e12 * 1e3
+    assert bound == ((ops_ms, "operations") if ops_ms >= bytes_ms
+                     else (bytes_ms, "bytes"))
+
+
 def test_platform_cuda_refuses_without_card(sequence):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: --platform cuda is valid")
