@@ -9,24 +9,31 @@ frames -> `ops.detect.detect_markers_batch_lru` (robust sweep, chunks
 of 32) -> `ops.pnp.solve_square_pnp` -> `filters.mekf.mekf_scan` ->
 TUM trajectory + map files in the JAX run_slam's formats.
 npz input may carry `images`, `corners` or pose-level `t_cl` bundles;
-video input is decoded by the JAX package's JAX-free `VideoSource`.
+video input is decoded by the port's own `io.VideoSource` on a
+background thread (`io.PrefetchingFrameSource`), so decode overlaps
+detection.
 
 ``--track-every K`` runs the streaming front end instead of full
 detection on every frame (`ops.detect.streaming_step`);
 ``--slot-max-age N`` recycles stale id->slot table slots and resets
 their landmarks; ``--load-map`` seeds the filter with a saved map;
 ``--input a.npz,b.npz,...`` serves S streams at once (detection over the
-S·T frames of a chunk as one batch, the S filters in one batched step;
-per-stream output files). ``--platform cuda`` is the default and raises
-when no card is present; the run never moves to the CPU in its place.
-Flags of the JAX run_slam that select paths not ported yet (the factor
-graph, viewers, checkpoints, ``--track-every`` with several inputs) are
-accepted and refused with a "not ported yet" error.
+S·T frames of a chunk as one batch, or with ``--track-every K`` frame
+by frame over all S streams, staggered in ``--rescue-cohorts G``
+cohorts; the S filters in one batched step; per-stream output files).
+``--platform cuda`` is the default and raises when no card is present;
+the run never moves to the CPU in its place. Every flag of the JAX
+run_slam parses: the factor graph's tuning flags are accepted and
+unused on the MEKF paths, as there; the paths not ported yet (the
+factor graph, the viewers, checkpoints, ``--profile``) are refused with
+a "not ported yet" error, except that with several inputs the viewer
+flags print the JAX run_slam's note and the fleet is served.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -42,8 +49,8 @@ from aruco_slam_tpu_torch.filters import mekf as mekf_mod
 from aruco_slam_tpu_torch.filters import (
     FrameObservations, MekfConfig, init_state, mekf_scan)
 from aruco_slam_tpu_torch.io import (
-    NpzSource, TrajectoryWriter, is_video, load_map, save_map,
-    video_frames)
+    NpzSource, PrefetchingFrameSource, TrajectoryWriter, is_video, load_map,
+    save_map, video_frames)
 from aruco_slam_tpu_torch.ops import detect, pnp
 from aruco_slam_tpu_torch.parallel.multi_slam import (
     batched_mekf_scan, stack_states)
@@ -163,6 +170,18 @@ def _observations_from_frames(frame_iter, cam, cfg: SlamAppConfig,
     return (np.asarray(times), cat(0), cat(1), cat(2), cam, cat(3),
             table.cpu().numpy(), cat(4) if recycle else None,
             cat(5) if recycle else None)
+
+
+def _prefetched_video(path: str):
+    """A video's (timestamp, gray) frames, decoded ahead on a background
+    thread into a ring of 16 (the JAX run_slam's video path); the first
+    frame, decoded here, gives the ring its frame shape."""
+    frames = video_frames(path)
+    first = next(frames, None)
+    if first is None:
+        raise ValueError(f"{path}: no decodable frames")
+    return itertools.chain([first], PrefetchingFrameSource(
+        frames, first[1].shape))
 
 
 def load_observations(src: NpzSource, cfg: SlamAppConfig,
@@ -312,15 +331,21 @@ def _load_stream_frames(path: str, cfg: SlamAppConfig):
 def run_multi_stream(cfg: SlamAppConfig, inputs: list[str], calib_dir,
                      device: torch.device, chunk: int = 32
                      ) -> list[RunResult]:
-    """Online multi-camera serving, as the JAX run_multi_stream's
-    full-detection branch: S streams (truncated to the shortest) through
-    the image->pose pipeline together. Each chunk's S·T frames run the
-    candidate sweep as one batch; slot assignment then steps the S
-    per-stream id->slot tables together; PnP runs on all S·T frames and
+    """Online multi-camera serving, as the JAX run_multi_stream: S
+    streams (truncated to the shortest) through the image->pose pipeline
+    together. With full detection each chunk's S·T frames run the
+    candidate sweep as one batch, and slot assignment then steps the S
+    per-stream id->slot tables together. With ``cfg.track_every`` K the
+    chunk's frames go to the device once and step frame by frame through
+    `detect.streaming_step(streams=S)` (one schedule for the fleet, or
+    ``cfg.rescue_cohorts`` staggered cohorts), whose carry crosses the
+    chunks; its tail chunk is not padded. PnP runs on all S·T frames and
     the S filters step together (`parallel.multi_slam.batched_mekf_scan`,
     one fused-update launch per frame). Outputs land in per-stream files
     (trajectory_s0.txt, map_s0.txt, ...); with a shared ``--max-obs``
-    each stream matches its single-stream run."""
+    each stream matches its single-stream run (with tracking: a stream
+    of cohort 0, or any stream without cohorts, whose single-stream run
+    never swept off the schedule)."""
     seconds = {}
     t0 = time.perf_counter()
     loaded = [_load_stream_frames(p, cfg) for p in inputs]
@@ -347,25 +372,45 @@ def run_multi_stream(cfg: SlamAppConfig, inputs: list[str], calib_dir,
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    tables = detect.slot_table_init(dcfg.capacity, device, streams=s)
-    seen = torch.zeros((s, dcfg.capacity), dtype=torch.int32,
-                       device=device)
+    ke = cfg.track_every
+    if ke:
+        step = detect.streaming_step(dcfg, ke, streams=s, mapped=True,
+                                     rescue_cohorts=cfg.rescue_cohorts)
+        carry = detect.streaming_init(dcfg, streams=s, mapped=True,
+                                      device=device)
+    else:
+        tables = detect.slot_table_init(dcfg.capacity, device, streams=s)
+        seen = torch.zeros((s, dcfg.capacity), dtype=torch.int32,
+                           device=device)
     outs = []
     for c0 in range(0, tlen, chunk):
         ims = frames[:, c0:c0 + chunk]
         n = ims.shape[1]
-        if n < chunk:  # zero-pad the tail, as the single-stream path
-            ims = np.concatenate(
-                [ims, np.zeros((s, chunk - n) + ims.shape[2:], ims.dtype)],
-                axis=1)
-        det_c, det_m, _, _, tables, seen, _ = detect.detect_markers_batch_lru(
-            torch.from_numpy(ims).to(device), dcfg, tables, seen, c0)
+        if ke:
+            # one upload a chunk, made time-major on the device: frame j
+            # of every stream is the contiguous (S, H, W) block ims[j]
+            ims = torch.from_numpy(np.ascontiguousarray(ims)).to(device)
+            per_frame = []
+            for im in ims.transpose(0, 1).contiguous():
+                carry, out = step(carry, im)
+                per_frame.append(out)
+            det_c, det_m = (torch.stack(x, 1) for x in zip(*per_frame))
+        else:
+            if n < chunk:  # zero-pad the tail, as the single-stream path
+                ims = np.concatenate(
+                    [ims, np.zeros((s, chunk - n) + ims.shape[2:],
+                                   ims.dtype)], axis=1)
+            det_c, det_m, _, _, tables, seen, _ = \
+                detect.detect_markers_batch_lru(
+                    torch.from_numpy(ims).to(device), dcfg, tables, seen, c0)
         res = pnp.solve_square_pnp(cam, det_c, cfg.marker_size)
         mask = det_m & (res.err < cfg.max_reproj_px)
         amb = res.err / torch.clamp(res.err2, min=1e-9)
         outs.append([x[:, :n] for x in (res.t_cl, res.q_cl, mask, amb)])
     t_cl, q_cl, mask, amb = (torch.cat([o[i] for o in outs], 1)
                              for i in range(4))
+    if ke:
+        tables = carry[3]
     _sync(device)
     seconds["front_end"] = time.perf_counter() - t0
 
@@ -460,17 +505,40 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--gate-distance", type=float,
                    default=dflt.gate_distance)
     p.add_argument("--max-obs", type=int, default=dflt.max_obs)
-    p.add_argument("--track-every", type=int, default=0, metavar="K",
+    p.add_argument("--track-every", type=int, default=dflt.track_every,
+                   metavar="K",
                    help="streaming detection: full sweep on 2 of every K "
                         "frames, decode-validated tracking in between "
                         "(K >= 3; 0 = full detection every frame)")
-    # the JAX run_slam's other paths: accepted, refused below
-    p.add_argument("--rescue-cohorts", type=int, default=0)
+    p.add_argument("--rescue-cohorts", type=int, default=dflt.rescue_cohorts,
+                   metavar="G",
+                   help="multi-stream serving with --track-every: split "
+                        "the fleet into G schedule cohorts (staggered K/G "
+                        "frames apart); a stream that loses every marker "
+                        "sweeps its own cohort at the next frame. G must "
+                        "divide the stream count; 0 = one schedule")
+    # the factor graph's tuning (accepted, unused by the MEKF paths)
+    p.add_argument("--window", type=int, default=dflt.window)
+    p.add_argument("--pose-budget", type=int, default=dflt.pose_budget)
+    p.add_argument("--meas-sigma-t", type=float, default=dflt.meas_sigma_t)
+    p.add_argument("--odom-sigma-t", type=float, default=dflt.odom_sigma_t)
+    p.add_argument("--odom-sigma-rot", type=float,
+                   default=dflt.odom_sigma_rot)
+    p.add_argument("--huber-delta", type=float, default=dflt.huber_delta)
+    p.add_argument("--ba-rotations", action="store_true")
+    # the JAX run_slam's paths not ported yet: refused in main; the
+    # modifiers of refused flags are accepted
     p.add_argument("--viz-2d", action="store_true")
     p.add_argument("--viz-3d", action="store_true")
     p.add_argument("--display", action="store_true")
+    p.add_argument("--viz-dir", default=dflt.viz_dir)
+    p.add_argument("--viz-3d-renderer", default=dflt.viz_3d_renderer,
+                   choices=["mpl", "fast"])
+    p.add_argument("--export-video", action="store_true")
     p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument("--checkpoint", default="outputs/checkpoint.npz")
     p.add_argument("--resume", default=None)
+    p.add_argument("--profile", default=None, metavar="DIR")
     return p
 
 
@@ -482,6 +550,7 @@ def main(argv=None) -> RunResult | list[RunResult]:
                      "the velocity prior)")
     inputs = [s for s in args.input.split(",") if s]
     fleet = "," in args.input
+    viewers = args.viz_2d or args.viz_3d or args.display
     if fleet:  # the JAX run_slam's refusals, word for word in effect
         if args.slot_max_age:
             parser.error("--slot-max-age is not supported by multi-stream "
@@ -491,16 +560,18 @@ def main(argv=None) -> RunResult | list[RunResult]:
         if args.filter == "factorgraph":
             parser.error("multi-stream serving runs the MEKF backends; for "
                          "batch factor-graph fleets use run_offline --fleet")
-        if args.track_every:
-            _not_ported("multi-stream serving with --track-every (fleet "
-                        "streaming)")
+        if args.track_every and args.rescue_cohorts \
+                and len(inputs) % args.rescue_cohorts:
+            raise ValueError(f"rescue_cohorts={args.rescue_cohorts} must "
+                             f"divide streams={len(inputs)}")
     if args.filter == "factorgraph":
         _not_ported("--filter factorgraph")
-    for flag, on in (("--viz-2d", args.viz_2d), ("--viz-3d", args.viz_3d),
-                     ("--display", args.display),
+    for flag, on in (("--viz-2d", args.viz_2d and not fleet),
+                     ("--viz-3d", args.viz_3d and not fleet),
+                     ("--display", args.display and not fleet),
                      ("--checkpoint-every", args.checkpoint_every),
                      ("--resume", args.resume),
-                     ("--rescue-cohorts", args.rescue_cohorts)):
+                     ("--profile", args.profile)):
         if on:
             _not_ported(flag)
     device = resolve_device(args.platform)
@@ -508,16 +579,25 @@ def main(argv=None) -> RunResult | list[RunResult]:
     cfg = SlamAppConfig(
         input=args.input, filter=args.filter,
         trajectory_file=args.trajectory, map_file=args.map_file,
+        viz_2d=args.viz_2d, viz_3d=args.viz_3d, viz_dir=args.viz_dir,
+        viz_3d_renderer=args.viz_3d_renderer,
+        export_video=args.export_video, window=args.window,
+        pose_budget=args.pose_budget, meas_sigma_t=args.meas_sigma_t,
+        odom_sigma_t=args.odom_sigma_t, odom_sigma_rot=args.odom_sigma_rot,
         mekf_r=args.mekf_r, mekf_q_cam=args.mekf_q_cam,
         mekf_q_rot=args.mekf_q_rot, mekf_q_lm=args.mekf_q_lm,
         mekf_motion_model=args.mekf_motion_model,
         pixel_sigma=args.pixel_sigma, mekf_q_vel=args.mekf_q_vel,
         mekf_vel_decay=args.vel_decay, mekf_precision=args.precision,
-        gate_distance=args.gate_distance, max_obs=args.max_obs,
-        dict_name=args.dict_name, track_every=args.track_every,
-        detector=args.detector, capacity=args.capacity,
-        slot_max_age=args.slot_max_age)
+        gate_distance=args.gate_distance, huber_delta=args.huber_delta,
+        max_obs=args.max_obs, dict_name=args.dict_name,
+        track_every=args.track_every, detector=args.detector,
+        capacity=args.capacity, slot_max_age=args.slot_max_age,
+        rescue_cohorts=args.rescue_cohorts)
     if fleet:
+        if viewers:
+            print("note: viz/display are per-stream features; the "
+                  "fleet path writes trajectories/maps only")
         return run_multi_stream(cfg, inputs, args.calib, device)
 
     seconds = {}
@@ -528,9 +608,9 @@ def main(argv=None) -> RunResult | list[RunResult]:
         if args.calib:
             k = np.load(Path(args.calib) / "camera_matrix.npy")
             d = np.load(Path(args.calib) / "dist_coeffs.npy")
-        obs = _observations_from_frames(
-            video_frames(cfg.input), _camera(k, d, device), cfg,
-            device)
+        cam = _camera(k, d, device)
+        obs = _observations_from_frames(_prefetched_video(cfg.input), cam,
+                                        cfg, device)
     else:
         src = NpzSource(cfg.input)
         seconds["load"] = time.perf_counter() - t0

@@ -8,12 +8,16 @@ does (imageio's pyav plugin where it is installed, else cv2), with the
 numpy grayscale+resize in place of the native host library; both give
 the same bytes (integer BT.601 weights, floored), which
 tests/test_torch_core.py checks on the imageio route with and without
-that library.
+that library. `PrefetchingFrameSource` decodes ahead on a background
+thread into a bounded queue, where the JAX package feeds a native ring.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -92,6 +96,87 @@ class VideoSource:
 def video_frames(path):
     """(timestamp_s, grayscale uint8 (H, W)) per frame of a video."""
     return VideoSource(path).frames()
+
+
+class _Failed(NamedTuple):
+    error: Exception
+
+
+_END = object()
+
+
+class PrefetchingFrameSource:
+    """Decode ahead: a background thread drains ``frame_iter`` of
+    (timestamp, gray) pairs into a queue of at most ``capacity`` frames,
+    and iterating yields them in order: the timestamp as a float (f64,
+    exact), the frame as a uint8 copy of shape ``frame_shape``.
+
+    An exception in the decode thread is raised again in the consumer
+    when it reaches that point of the stream, so a truncated video is
+    an error, not a shorter run. The thread starts with the iteration,
+    so a source that is never iterated decodes nothing. Ending the
+    iteration early (a ``break``, an exception, or `close`) stops the
+    thread: a producer waiting on a full queue sees the stop within
+    ~0.05 s, one in the middle of a decode after it, and then closes
+    ``frame_iter``."""
+
+    _POLL_S = 0.05
+
+    def __init__(self, frame_iter, frame_shape, capacity: int = 16) -> None:
+        self.shape = tuple(frame_shape)
+        self._frames = frame_iter
+        self._queue: queue.Queue = queue.Queue(maxsize=capacity)
+        self._stop = threading.Event()
+        self.thread = threading.Thread(target=self._produce,
+                                       args=(frame_iter,), daemon=True)
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self._queue.put(item, timeout=self._POLL_S)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def _produce(self, frame_iter) -> None:
+        end = _END
+        try:
+            for ts, frame in frame_iter:
+                gray = np.array(frame, np.uint8).reshape(self.shape)
+                if not self._put((float(ts), gray)):
+                    return
+        except Exception as e:  # handed to the consumer, which raises it
+            end = _Failed(e)
+        finally:
+            self._put(end)
+            _close(frame_iter)
+
+    def __iter__(self):
+        if self._stop.is_set():
+            return
+        self.thread.start()
+        try:
+            while (item := self._queue.get()) is not _END:
+                if isinstance(item, _Failed):
+                    raise item.error
+                yield item
+        finally:
+            self.close()
+
+    def close(self) -> None:
+        """Stop the decode thread (it ends on its own within ~0.05 s, or
+        after the decode it is in); a source never iterated closes
+        ``frame_iter`` here."""
+        self._stop.set()
+        if self.thread.ident is None:
+            _close(self._frames)
+
+
+def _close(frame_iter) -> None:
+    close = getattr(frame_iter, "close", None)
+    if close is not None:
+        close()
 
 
 class NpzSource:

@@ -25,18 +25,21 @@ argmax takes the first maximum. The harvest sort is stable here and
 unstable there; within a component the order of its pixels only moves
 distance ties in the quad extraction.
 
-The single-stream streaming tracker follows: `track_markers` (three
-subpixel pulls, a median consensus and a payload re-decode per live
-slot), `detect_or_track[_mapped]` and `streaming_step`, which runs the
+The streaming tracker follows: `track_markers` (three subpixel pulls,
+a median consensus and a payload re-decode per live slot),
+`detect_or_track[_batch][_mapped]` and `streaming_step`, which runs the
 detect-every-K schedule frame by frame. Where JAX picks the branch with
-`lax.cond`, the port tests the predicate on the host (one device sync
-per frame) and runs only the branch taken.
+`lax.cond`, the port tests the predicate on the host and runs only the
+branch taken.
 
-Slot assignment takes an optional leading stream axis (the fleet's S
-tables advance together, T steps per chunk whatever S), and with
-``slot_max_age > 0`` recycles the stalest slot once the table is full.
-Not ported yet: the fleet streaming forms (``streams=``,
-`detect_or_track_batch*`, rescue cohorts).
+Slot assignment and the tracker take an optional leading stream axis:
+the fleet's S tables advance together (T steps per chunk whatever S),
+and a fleet frame of the streaming forms (`streaming_step(streams=S)`,
+with or without rescue cohorts) runs as at most one sweep batch and one
+tracked batch, so each kernel launches once a fleet frame for all S
+streams (three subpixel launches a tracked batch), not once a stream.
+With ``slot_max_age > 0`` slot assignment recycles the stalest slot
+once the table is full.
 """
 
 from __future__ import annotations
@@ -227,7 +230,7 @@ def _homography_cells(corners: torch.Tensor, cells: int) -> torch.Tensor:
 
 def _sample_cells(img: torch.Tensor, quads: torch.Tensor, cells: int):
     """Nearest-pixel samples of the (cells x cells) grid of every quad,
-    thresholded to bits. img (B, H, W) f32, quads (B, K, 4, 2).
+    thresholded to bits. img (B, H, W) uint8 or f32, quads (B, K, 4, 2).
     Returns (bits (B, K, cells, cells) bool, border_white (B, K))."""
     b, k = quads.shape[:2]
     _, h, w = img.shape
@@ -242,7 +245,7 @@ def _sample_cells(img: torch.Tensor, quads: torch.Tensor, cells: int):
     xi = torch.clamp(torch.round(px).to(torch.int64), 0, w - 1)
     yi = torch.clamp(torch.round(py).to(torch.int64), 0, h - 1)
     bi = torch.arange(b, device=dev)[:, None, None]
-    samples = img[bi, yi, xi].reshape(b, k, cells, cells)
+    samples = img[bi, yi, xi].reshape(b, k, cells, cells).to(torch.float32)
     smin = samples.amin(dim=(-2, -1), keepdim=True)
     smax = samples.amax(dim=(-2, -1), keepdim=True)
     bits = samples > 0.5 * (smin + smax)
@@ -571,10 +574,15 @@ def assign_slots(table_ids, canon, cand_ids, decoded, top_score):
 
 def detect_markers_mapped(image: torch.Tensor, cfg: DetectorConfig,
                           table_ids: torch.Tensor):
-    """`detect_markers` of one (H, W) frame with the id->slot table
-    layout. Returns (Detections, updated table_ids)."""
-    canon, cand_ids, decoded, top_score = (
-        x[0] for x in _detect_candidates(image[None], cfg))
+    """`detect_markers` with the id->slot table layout: one (H, W) frame
+    and its (C,) table, or the (S, H, W) frames of S streams and their
+    (S, C) tables (one candidate batch, the S tables assigned at once).
+    Returns (Detections, updated table_ids)."""
+    if image.dim() == 2:
+        det, table_ids = detect_markers_mapped(image[None], cfg,
+                                               table_ids[None])
+        return Detections(*(x[0] for x in det)), table_ids[0]
+    canon, cand_ids, decoded, top_score = _detect_candidates(image, cfg)
     slot_c, slot_mask, table_ids = assign_slots(
         table_ids, canon, cand_ids, decoded, top_score)
     return Detections(corners=slot_c, mask=slot_mask, cand_corners=canon,
@@ -653,10 +661,10 @@ def track_velocity(new_c: torch.Tensor, new_m: torch.Tensor,
                    old_c: torch.Tensor, old_m: torch.Tensor
                    ) -> torch.Tensor:
     """Per-marker translation prior: the median corner displacement
-    (C, 1, 2) broadcast over the corners, zero for slots not alive in
-    both frames."""
-    med = _median(new_c - old_c, 1)
-    return torch.where((new_m & old_m)[:, None, None],
+    (..., C, 1, 2) broadcast over the corners, zero for slots not alive
+    in both frames. Takes (C, 4, 2) slots or (S, C, 4, 2) streams."""
+    med = _median(new_c - old_c, -2)
+    return torch.where((new_m & old_m)[..., None, None],
                        med.expand_as(new_c), 0.0)
 
 
@@ -680,48 +688,58 @@ def track_markers(image: torch.Tensor, corners: torch.Tensor,
                   velocity: torch.Tensor | None = None,
                   slot_ids: torch.Tensor | None = None):
     """Track the previous frame's slot corners (C, 4, 2) with live mask
-    (C,) into the (H, W) frame ``image``: the search starts at corners +
-    velocity, and a slot survives only if its re-decoded payload still
-    spells its own id (``slot_ids`` (C,), -1 = free; None = slot index
-    is the id). At most ``cfg.track_slots`` live slots are tracked (the
-    lowest indices first); the rest drop until the next full sweep.
-    Returns this frame's (corners (C, 4, 2), mask (C,))."""
+    (C,) into the (H, W) frame ``image``, or S streams' (S, C, ...) state
+    into their (S, H, W) frames as one batch (three subpixel launches for
+    all S): the search starts at corners + velocity, and a slot survives
+    only if its re-decoded payload still spells its own id (``slot_ids``
+    (..., C), -1 = free; None = slot index is the id). At most
+    ``cfg.track_slots`` live slots a stream are tracked (the lowest
+    indices first); the rest drop until the next full sweep. Returns
+    this frame's (corners (..., C, 4, 2), mask (..., C))."""
+    if image.dim() == 2:
+        nc, nm = track_markers(
+            image[None], corners[None], mask[None], cfg,
+            None if velocity is None else velocity[None],
+            None if slot_ids is None else slot_ids[None])
+        return nc[0], nm[0]
     d = dict_mod.load(cfg.dict_name)
-    c = corners.shape[0]
-    dev = corners.device
+    s, c = mask.shape
     if velocity is None:
         velocity = torch.zeros_like(corners)
     if slot_ids is None:
-        slot_ids = torch.arange(c, device=dev)
+        slot_ids = torch.arange(c, device=corners.device).expand(s, c)
     ts = min(cfg.track_slots, c) if cfg.track_slots else c
     if ts < c:
-        _, idx = _top_k_low_index(mask.to(torch.int32), ts)
-        rc, ok = _track_core(image, corners[idx], mask[idx], velocity[idx],
-                             cfg, d, slot_ids[idx])
-        return (corners.index_copy(0, idx, rc),
-                torch.zeros(c, dtype=torch.bool, device=dev
-                            ).index_copy(0, idx, ok))
+        # each stream's live slots (the JAX top_k under vmap), gathered
+        # along the slot axis, tracked, and scattered back
+        _, idx = _top_k_low_index(mask.to(torch.int32), ts)      # (S, ts)
+        idx4 = idx[..., None, None].expand(s, ts, 4, 2)
+        rc, ok = _track_core(image, corners.gather(1, idx4),
+                             mask.gather(1, idx), velocity.gather(1, idx4),
+                             cfg, d, slot_ids.gather(1, idx))
+        return (corners.scatter(1, idx4, rc),
+                torch.zeros_like(mask).scatter(1, idx, ok))
     return _track_core(image, corners, mask, velocity, cfg, d, slot_ids)
 
 
-def _track_core(image, corners, mask, velocity, cfg: DetectorConfig, d,
+def _track_core(images, corners, mask, velocity, cfg: DetectorConfig, d,
                 slot_ids):
-    """Tracking on a (possibly compacted) slot set of S rows: two
-    median-consensus pulls (windows track_win, then 6), a tight polish
-    ((3, 4), (2, 2)) whose corners snap back to the consensus quad when
-    they stray over 1.25 px, then the payload re-decode and the in-frame
-    check. Returns (corners (S, 4, 2), ok (S,))."""
+    """Tracking on a (possibly compacted) set of N slot rows in each of
+    S streams: two median-consensus pulls (windows track_win, then 6), a
+    tight polish ((3, 4), (2, 2)) whose corners snap back to the
+    consensus quad when they stray over 1.25 px, then the payload
+    re-decode and the in-frame check. Returns (corners (S, N, 4, 2), ok
+    (S, N))."""
     cells = d.marker_bits + 2
-    img = image.to(torch.float32)
-    h, w = img.shape
-    s = corners.shape[0]
+    _, h, w = images.shape
+    s, n = mask.shape
 
     def refine(seed, schedule):
-        return _subpix_refine(image[None], seed.reshape(1, -1, 2),
-                              schedule).reshape(s, 4, 2)
+        return _subpix_refine(images, seed.reshape(s, -1, 2),
+                              schedule).reshape(s, n, 4, 2)
 
     def consensus(seed, schedule):
-        return seed + _median(refine(seed, schedule) - seed, 1)
+        return seed + _median(refine(seed, schedule) - seed, -2)
 
     quad = consensus(corners + velocity,
                      ((cfg.track_win, cfg.subpix_iters),))
@@ -729,96 +747,179 @@ def _track_core(image, corners, mask, velocity, cfg: DetectorConfig, d,
     refined = refine(quad, ((3, 4), (2, 2)))
     refined = torch.where(torch.abs(refined - quad) > 1.25, quad, refined)
 
-    bits, border_white = _sample_cells(img[None], refined[None], cells)
-    payload = bits[0, :, 1:-1, 1:-1].reshape(s, -1)
-    n = d.num_markers
-    table = torch.as_tensor(d.bits.reshape(n, -1).astype(bool),
-                            device=image.device)
-    expected = table[torch.clamp(slot_ids, 0, n - 1).long()]
+    bits, border_white = _sample_cells(images, refined, cells)
+    payload = bits[..., 1:-1, 1:-1].reshape(s, n, -1)
+    nm = d.num_markers
+    table = torch.as_tensor(d.bits.reshape(nm, -1).astype(bool),
+                            device=images.device)
+    expected = table[torch.clamp(slot_ids, 0, nm - 1).long()]
     hamming = (payload ^ expected).sum(-1)
-    slot_live = (slot_ids >= 0) & (slot_ids < n)
+    slot_live = (slot_ids >= 0) & (slot_ids < nm)
     # the final window (half 3 + 1 px of gradient border) must fit
     margin = 4.0
     xs, ys = refined[..., 0], refined[..., 1]
     in_frame = ((xs > margin) & (xs < w - margin)
                 & (ys > margin) & (ys < h - margin)).all(-1)
     ok = (mask & slot_live & in_frame
-          & (border_white[0] <= cfg.border_max_white)
+          & (border_white <= cfg.border_max_white)
           & (hamming <= cfg.max_hamming))
     return refined, ok
+
+
+def detect_or_track_batch(images: torch.Tensor, corners: torch.Tensor,
+                          mask: torch.Tensor, velocity: torch.Tensor,
+                          do_full, cfg: DetectorConfig):
+    """One streaming step of S streams sharing one full/track predicate,
+    slot == id layout: (S, H, W) frames, (S, C, ...) state. ``do_full`` (a
+    bool or a 0-d bool tensor, read on the host) picks the branch, and
+    only the branch taken runs, on all S streams as one batch: the
+    candidate sweep of the S frames, or tracking with the
+    constant-velocity prior. Returns (corners, mask, velocity)."""
+    if bool(do_full):
+        det = detect_markers(images, cfg)
+        nc, nm = det.corners, det.mask
+    else:
+        nc, nm = track_markers(images, corners, mask, cfg, velocity)
+    return nc, nm, track_velocity(nc, nm, corners, mask)
+
+
+def detect_or_track_batch_mapped(images: torch.Tensor, corners: torch.Tensor,
+                                 mask: torch.Tensor, velocity: torch.Tensor,
+                                 table_ids: torch.Tensor, do_full,
+                                 cfg: DetectorConfig):
+    """`detect_or_track_batch` with the S streams' (S, C) id->slot
+    tables: full sweeps claim slots through each stream's table, tracked
+    frames validate each slot against its marker id. Returns (corners,
+    mask, velocity, table_ids)."""
+    if bool(do_full):
+        det, table_ids = detect_markers_mapped(images, cfg, table_ids)
+        nc, nm = det.corners, det.mask
+    else:
+        nc, nm = track_markers(images, corners, mask, cfg, velocity,
+                               slot_ids=table_ids)
+    return nc, nm, track_velocity(nc, nm, corners, mask), table_ids
 
 
 def detect_or_track(image: torch.Tensor, corners: torch.Tensor,
                     mask: torch.Tensor, velocity: torch.Tensor, do_full,
                     cfg: DetectorConfig):
-    """One streaming step on an (H, W) frame, slot == id layout: a full
-    sweep when ``do_full`` (a bool or a 0-d bool tensor, read on the
-    host), else tracking with the constant-velocity prior. Only the
-    branch taken runs. Returns (corners, mask, velocity)."""
-    if bool(do_full):
-        det = detect_markers(image, cfg)
-        return (det.corners, det.mask,
-                track_velocity(det.corners, det.mask, corners, mask))
-    nc, nm = track_markers(image, corners, mask, cfg, velocity)
-    return nc, nm, track_velocity(nc, nm, corners, mask)
+    """`detect_or_track_batch` of one stream: an (H, W) frame, (C, ...)
+    state. Returns (corners, mask, velocity)."""
+    out = detect_or_track_batch(image[None], corners[None], mask[None],
+                                velocity[None], do_full, cfg)
+    return tuple(x[0] for x in out)
 
 
 def detect_or_track_mapped(image: torch.Tensor, corners: torch.Tensor,
                            mask: torch.Tensor, velocity: torch.Tensor,
                            table_ids: torch.Tensor, do_full,
                            cfg: DetectorConfig):
-    """`detect_or_track` with the id->slot table: full sweeps claim
-    slots through the table, tracked frames validate each slot against
-    table_ids[slot]. Returns (corners, mask, velocity, table_ids)."""
-    if bool(do_full):
-        det, tids = detect_markers_mapped(image, cfg, table_ids)
-        return (det.corners, det.mask,
-                track_velocity(det.corners, det.mask, corners, mask), tids)
-    nc, nm = track_markers(image, corners, mask, cfg, velocity,
-                           slot_ids=table_ids)
-    return nc, nm, track_velocity(nc, nm, corners, mask), table_ids
-
-
-def _fleet_not_ported(streams, rescue_cohorts: int = 0) -> None:
-    if streams is not None or rescue_cohorts:
-        raise NotImplementedError(
-            "fleet streaming (streams=, detect_or_track_batch*, rescue "
-            "cohorts): not ported yet")
+    """`detect_or_track_batch_mapped` of one stream. Returns (corners,
+    mask, velocity, table_ids)."""
+    out = detect_or_track_batch_mapped(
+        image[None], corners[None], mask[None], velocity[None],
+        table_ids[None], do_full, cfg)
+    return tuple(x[0] for x in out)
 
 
 def streaming_init(cfg: DetectorConfig, streams: int | None = None,
                    mapped: bool = False, device=None):
     """Initial carry (corners, mask, velocity[, table_ids], frame index)
-    of `streaming_step`; the frame index is a host int."""
-    _fleet_not_ported(streams)
-    cr = (torch.zeros((cfg.capacity, 4, 2), device=device),
-          torch.zeros(cfg.capacity, dtype=torch.bool, device=device),
-          torch.zeros((cfg.capacity, 4, 2), device=device))
+    of `streaming_step`, with a leading (S,) axis for ``streams``; the
+    frame index is a host int."""
+    lead = () if streams is None else (streams,)
+    cr = (torch.zeros((*lead, cfg.capacity, 4, 2), device=device),
+          torch.zeros((*lead, cfg.capacity), dtype=torch.bool,
+                      device=device),
+          torch.zeros((*lead, cfg.capacity, 4, 2), device=device))
     if mapped:
-        cr = cr + (slot_table_init(cfg.capacity, device),)
+        cr = cr + (slot_table_init(cfg.capacity, device, streams),)
     return cr + (0,)
 
 
 def streaming_step(cfg: DetectorConfig, track_every: int,
                    streams: int | None = None, mapped: bool = False,
                    rescue_cohorts: int = 0):
-    """The detect-every-K step ``step(carry, image) -> (carry, (corners,
+    """The detect-every-K step ``step(carry, frames) -> (carry, (corners,
     mask))``: a full sweep on the 2 bootstrap frames of every
-    ``track_every``-frame period, and at once whenever tracking has
-    nothing left; validated tracking in between. ``mapped`` adds the
-    id->slot table to the carry."""
-    _fleet_not_ported(streams, rescue_cohorts)
+    ``track_every``-frame period, validated tracking in between.
+    ``mapped`` adds the id->slot table to the carry.
+
+    One stream (``streams=None``, (H, W) frames): a sweep also runs at
+    once whenever tracking has nothing left (a host read of the mask).
+    ``streams=S`` ((S, H, W) frames): one schedule for the whole fleet
+    and no per-stream rescue, so a tracked frame reads nothing back; a
+    stream that lost everything waits for the next scheduled sweep.
+    ``rescue_cohorts=G`` (dividing S) splits the fleet into G cohorts
+    whose schedules are staggered by K/G frames, each swept at once when
+    one of its streams lost everything (`_cohort_step`)."""
     ke = track_every
+    if rescue_cohorts and streams:
+        if streams % rescue_cohorts:
+            raise ValueError(
+                f"rescue_cohorts={rescue_cohorts} must divide "
+                f"streams={streams}")
+        return _cohort_step(cfg, ke, streams, rescue_cohorts, mapped)
+    if streams is None:
+        fwd = detect_or_track_mapped if mapped else detect_or_track
+    else:
+        fwd = detect_or_track_batch_mapped if mapped \
+            else detect_or_track_batch
 
     def step(cr, im):
-        c, m, v = cr[:3]
         i = cr[-1]
-        do_full = (i % ke) < 2 or not bool(m.any())
-        if mapped:
-            c, m, v, tids = detect_or_track_mapped(im, c, m, v, cr[3],
-                                                   do_full, cfg)
-            return (c, m, v, tids, i + 1), (c, m)
-        c, m, v = detect_or_track(im, c, m, v, do_full, cfg)
-        return (c, m, v, i + 1), (c, m)
+        do_full, = sweep_due(i, ke, 1, cr[1] if streams is None else None)
+        out = fwd(im, *cr[:-1], do_full, cfg)
+        return (*out, i + 1), out[:2]
+
+    return step
+
+
+def sweep_due(i: int, ke: int, cohorts: int = 1, mask=None) -> list[bool]:
+    """The detect-every-K schedule of frame ``i``: for each of ``cohorts``
+    cohorts, whether it sweeps. Cohort g sweeps on the 2 bootstrap frames
+    of its ``ke``-frame period, shifted by g·K // G frames, and, given the
+    previous frame's ``mask`` ((C,) for one stream, or (S, C) with each
+    cohort's streams in a row), also when one of its streams tracked
+    nothing; those flags come to the host in one read, made only where
+    the schedule leaves a cohort to track."""
+    due = [((i + g * ke // cohorts) % ke) < 2 for g in range(cohorts)]
+    if mask is not None and not all(due):
+        dead = (~mask.reshape(cohorts, -1, mask.shape[-1]).any(-1)).any(-1)
+        due = [d or x for d, x in zip(due, dead.tolist())]
+    return due
+
+
+def _cohort_step(cfg: DetectorConfig, ke: int, streams: int, cohorts: int,
+                 mapped: bool):
+    """The fleet step with G staggered cohorts (see `streaming_step`):
+    cohort g, streams g·S/G to (g+1)·S/G − 1, sweeps as `sweep_due` says
+    (on its shifted schedule, or when one of its streams tracked nothing
+    on the previous frame; one host read a frame). Where the
+    JAX package runs one branch per cohort, every stream due a sweep
+    runs in one sweep batch and every other stream in one tracked batch,
+    scattered back in stream order: a stream's result does not depend on
+    its batch-mates, so this is the cohort-by-cohort step bit for bit,
+    with at most one candidate sweep and one tracked batch a frame
+    whatever G."""
+    per = streams // cohorts
+    fwd = detect_or_track_batch_mapped if mapped else detect_or_track_batch
+
+    def step(cr, im):
+        state, i = cr[:-1], cr[-1]
+        due = sweep_due(i, ke, cohorts, state[1])
+        sweep = [j for j in range(streams) if due[j // per]]
+        track = [j for j in range(streams) if not due[j // per]]
+        if not sweep or not track:
+            out = fwd(im, *state, bool(sweep), cfg)
+        else:
+            dev = im.device
+            parts = [fwd(*(x.index_select(0, torch.tensor(ids, device=dev))
+                           for x in (im, *state)), full, cfg)
+                     for ids, full in ((sweep, True), (track, False))]
+            back = torch.argsort(torch.tensor(sweep + track, device=dev))
+            out = tuple(torch.cat(xs).index_select(0, back)
+                        for xs in zip(*parts))
+        return (*out, i + 1), out[:2]
 
     return step

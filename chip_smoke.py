@@ -12,10 +12,13 @@ non-zero, and no result line is printed):
                 (one nvcc per source, in parallel).
 3. kernels    — each kernel's wrapper against its plain PyTorch version
                 on the card, at its path's shapes, with the stated
-                tolerance: B1 labeling, B2 subpixel refinement (the
+                tolerance: B1 labeling (the chunk's grids, and the
+                fleet streaming path's for 8 streams and for one
+                cohort's 2), B2 subpixel refinement (the
                 detector's schedule and the tracker's three over the
-                chunk, and the tracker's real call, one frame x 64
-                corners; each also without iterations), B3 MEKF
+                chunk, the tracker's real call, one frame x 64
+                corners, and the fleet streaming path's sweep and
+                tracked batches; each also without iterations), B3 MEKF
                 update (point mode N = 201, M = 48; rotation mode N =
                 393, M = 112, and M = 224 at --max-obs 32; and 8
                 streams in one batched launch
@@ -60,6 +63,23 @@ non-zero, and no result line is printed):
                 single-stream run, duplicates identical, B1/B2/B3
                 launched, B3 once per frame) and warm (aggregate
                 frames/s, peak device memory).
+11. fleet streaming — the same 8 streams with `--track-every 8`, one
+                schedule (G = 0) and 4 rescue cohorts (G = 4), cold
+                (B1 and B2 launched once a fleet frame, frame by frame
+                exactly as the step's sweep decisions say: G = 0 makes
+                3 B1 launches a sweep frame and 3 B2 launches a tracked
+                one for all 8 streams, 24 and 80 a chunk; B3 once a
+                frame; each G =
+                0 stream within 1e-4 m of its own single-stream
+                `--track-every 8` run, which swept only on its schedule,
+                duplicates identical; cohort 0 likewise at G = 4, every
+                stream's ATE under the bound) and warm (aggregate
+                frames/s beside the full-detection fleet's, seconds
+                split into load, front end less load, and filter).
+12. prefetch    — the main path's frames, from a generator standing in
+                for a video decoder, through `io.PrefetchingFrameSource`
+                into the front end: the same observations as fed
+                directly, and the main run's.
 
 The line before the last is {"kernels": [...]} (each with its launches
 on the main path, or on its own path for B4 and B5, and its launches
@@ -70,6 +90,7 @@ of the JAX package (aruco_slam_tpu).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -98,6 +119,7 @@ TRACK_EVERY = 8       # the streaming path's K
 STREAMS = 8           # the fleet path's streams: 4 sequences, each twice
 FLEET_TOL = 1e-4      # m, a fleet stream against its single-stream run
                       # (tests/test_io_apps.py's bound for the JAX fleet)
+FLEET_COHORTS = 4     # the fleet streaming path's rescue cohorts (G > 0)
 MAX_OBS = "16"        # shared --max-obs of the fleet and its references
 # the detector's subpixel schedule, the tracker's three pulls and
 # detect.refine_corners' default
@@ -236,9 +258,13 @@ def _b1(rng, dev):
     from aruco_slam_tpu_torch.ops import cuda_cc
     # the grids run_slam labels per chunk at 1080p: 270x480 twice
     # (prop_iters 16) and 540x960 once (fine pass, max(16, 16 // 2)),
-    # plus a 1080x1920 grid (the fine pass of 4K input)
+    # plus a 1080x1920 grid (the fine pass of 4K input); the fleet
+    # streaming path labels the same grids for a sweep batch: all the
+    # streams (one schedule) or one cohort's
     cases = [((CHUNK, 270, 480), 16, 4), ((CHUNK, 540, 960), 16, 4),
-             ((2, 1080, 1920), 16, 4)]
+             ((2, 1080, 1920), 16, 4)] + [
+        ((n, h, w), 16, 4) for n in (STREAMS, STREAMS // FLEET_COHORTS)
+        for h, w in ((270, 480), (540, 960))]
     worst = 0
     shapes = []
     for shape, iters, rounds in cases:
@@ -367,6 +393,20 @@ def _b2(frames, corners_true, mask_true, rng, dev):
     c = torch.from_numpy(seeds).to(dev)
     for sched in TRACKER_SCHEDS:
         shapes.append(_b2_case(img[:1], c, sched, "a tracker pull"))
+    # the fleet streaming path: a sweep batch of all the streams or one
+    # cohort's, a tracked batch of all the streams or of the other
+    # cohorts' (one frame of each stream a call)
+    part = STREAMS // FLEET_COHORTS
+    for sched, n, per_frame, tag in [
+            (DETECTOR_SCHED, STREAMS, 384, "a fleet sweep"),
+            (DETECTOR_SCHED, part, 384, "a cohort sweep")] + [
+            (s, n, 64, tag) for n, tag in ((STREAMS, "a fleet pull"),
+                                           (STREAMS - part, "a cohorts pull"))
+            for s in TRACKER_SCHEDS]:
+        seeds, _ = _seeds(corners_true[:n], mask_true[:n], rng, per_frame,
+                          3.0)
+        shapes.append(_b2_case(img[:n], torch.from_numpy(seeds).to(dev),
+                               sched, tag))
     main = shapes[0]
     return {"name": "refine_corners", "route": "cuda",
             "source": "aruco_slam_tpu_torch/csrc/subpix.cu",
@@ -685,6 +725,45 @@ def _require(counts: dict, path: str, names) -> None:
             raise AssertionError(f"the {path} never launched {name}")
 
 
+@contextlib.contextmanager
+def _recording_schedule(record):
+    """Within the block, `detect.streaming_step` records, for every frame
+    it steps, (frame index, the B1 and B2 launches that the step's own
+    sweep decisions (`detect.sweep_due`) call for, the B1 and B2 launches
+    made, the streams due a sweep)."""
+    from aruco_slam_tpu_torch.ops import cuda_cc, cuda_subpix, detect
+    real_step, real_due = detect.streaming_step, detect.sweep_due
+    decided = []
+
+    def recording_due(*args, **kw):
+        decided.append(real_due(*args, **kw))
+        return decided[-1]
+
+    def recording_step(cfg, ke, **kw):
+        step = real_step(cfg, ke, **kw)
+        streams = kw.get("streams") or 1
+
+        def recorded(cr, im):
+            before = (cuda_cc.flood_scan_labels.launches,
+                      cuda_subpix.refine_corners.launches)
+            decided.clear()
+            out = step(cr, im)
+            due, = decided
+            sweep, track = any(due), not all(due)
+            record.append((cr[-1], (3 * sweep, int(sweep) + 3 * track),
+                           (cuda_cc.flood_scan_labels.launches - before[0],
+                            cuda_subpix.refine_corners.launches - before[1]),
+                           streams // len(due) * sum(due)))
+            return out
+        return recorded
+
+    detect.streaming_step, detect.sweep_due = recording_step, recording_due
+    try:
+        yield
+    finally:
+        detect.streaming_step, detect.sweep_due = real_step, real_due
+
+
 def _run_slam(argv, gt_t, tag: str):
     """One run_slam.main call with its checks: output files, a finite
     trajectory of every frame, ATE under the bound, more than half the
@@ -809,42 +888,25 @@ def phase_stencil_only(frames, dev):
 
 def phase_streaming(argv, gt_t, main_res, main_fps: float, smi: str):
     """run_slam --track-every K: which frames took a full sweep (B1
-    launches there and only there), ATE, and the tracked frames'
-    detections against the main run's on the same frames."""
-    from aruco_slam_tpu_torch.ops import cuda_cc, detect
+    and B2 launched on every frame as its schedule says), ATE, and the
+    tracked frames' detections against the main run's on the same
+    frames."""
     argv = [*argv, "--track-every", str(TRACK_EVERY)]
-    real = detect.streaming_step
-    frames = []   # (frame index, full sweep due, B1 launches)
-
-    def recording_step(cfg, ke, **kw):
-        step = real(cfg, ke, **kw)
-
-        def recorded(cr, im):
-            i = cr[-1]
-            due = (i % ke) < 2 or not bool(cr[1].any())
-            b1 = cuda_cc.flood_scan_labels.launches
-            out = step(cr, im)
-            frames.append((i, due, cuda_cc.flood_scan_labels.launches - b1))
-            return out
-        return recorded
-
+    frames = []
     _reset_counts()
-    detect.streaming_step = recording_step
-    try:
+    with _recording_schedule(frames):
         res = _run_slam(argv, gt_t, "streaming")
-    finally:
-        detect.streaming_step = real
     launches = _counts()
-    full = [i for i, _, b1 in frames if b1]
+    full = [f[0] for f in frames if f[2][0]]
     log(f"[streaming] launches in the run: {launches}; full sweeps (B1) "
         f"on frames {full} of {len(frames)}")
     _require(launches, "streaming path", ("flood_scan_labels",
                                           "refine_corners", "fused_update"))
-    wrong = [i for i, due, b1 in frames if bool(b1) != due]
+    wrong = [f[0] for f in frames if f[1] != f[2]]
     if len(frames) != len(gt_t) or wrong:
-        raise AssertionError(f"streaming: B1 launched off the schedule on "
-                             f"frames {wrong} ({len(frames)} frames run)")
-    tracked = [i for i, _, b1 in frames if not b1]
+        raise AssertionError(f"streaming: B1 or B2 launched off the schedule "
+                             f"on frames {wrong} ({len(frames)} frames run)")
+    tracked = [f[0] for f in frames if not f[2][0]]
     got = int(res.obs_mask[tracked].sum())
     ref = int(main_res.obs_mask[tracked].sum())
     log(f"[streaming] tracked frames {tracked}: {got} detections, the main "
@@ -966,30 +1028,65 @@ def phase_recycling(tmp: Path, dev):
     return launches
 
 
-def phase_fleet(tmp: Path, seqs, main_fps: float, smi: str):
-    """run_slam --input s0.npz,...: STREAMS streams, each of the distinct
-    sequences twice. Cold: each stream within FLEET_TOL of its own
-    single-stream run with the same map ids, duplicates identical, B1,
-    B2 and B3 launched, B3 once per frame. Warm: aggregate frames/s
-    (streams x frames over wall time) and peak device memory."""
+def _fleet_inputs(tmp: Path, seqs) -> list[Path]:
+    """The distinct sequences as npz inputs s0.npz, s1.npz, ..."""
     import numpy as np
-    import torch
-    from aruco_slam_tpu_torch.apps import run_slam
-    from aruco_slam_tpu_torch.io import load_map, save_npz
+    from aruco_slam_tpu_torch.io import save_npz
     paths = []
     for i, (frames, times, gt_t, k, dist) in enumerate(seqs):
         paths.append(tmp / f"s{i}.npz")
         save_npz(paths[-1], times=times, images=frames, gt_cam_t=gt_t,
                  camera_matrix=k, dist_coeffs=dist,
                  marker_size=np.float64(0.16))
+    return paths
+
+
+def _fleet_argv(tmp: Path, paths, tag: str, *flags) -> list[str]:
     inputs = paths * (STREAMS // len(paths))
-    argv = ["--input", ",".join(map(str, inputs)), "--platform", PLATFORM,
-            "--max-obs", MAX_OBS, "--trajectory", str(tmp / "fleet.txt"),
-            "--map", str(tmp / "fleet_map.txt")]
+    return ["--input", ",".join(map(str, inputs)), "--platform", PLATFORM,
+            "--max-obs", MAX_OBS, "--trajectory", str(tmp / f"{tag}.txt"),
+            "--map", str(tmp / f"{tag}_map.txt"), *flags]
+
+
+def _fleet_warm(argv, tlen: int, tag: str, smi: str) -> dict:
+    """A warm fleet run: aggregate frames/s (streams x frames over the
+    wall time), its stage seconds (load, front end less load, filter)
+    and peak device memory."""
+    import torch
+    from aruco_slam_tpu_torch.apps import run_slam
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = run_slam.main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    sec = warm[0].seconds
+    out = {"fps": STREAMS * tlen / dt, "wall_s": dt, "load_s": sec["load"],
+           "front_end_less_load_s": sec["front_end"] - sec["load"],
+           "filter_s": sec["filter"], "peak_bytes": sec.get("peak_bytes")}
+    peak = out["peak_bytes"]
+    log(f"[{tag}] warm run: {STREAMS} x {tlen} frames {SIZE[0]}x{SIZE[1]} "
+        f"in {dt:.3f} s = {out['fps']:.2f} frames/s aggregate "
+        f"({out['fps'] / STREAMS:.2f} per stream; load {out['load_s']:.3f} "
+        f"s, front end less load {out['front_end_less_load_s']:.3f} s, "
+        f"filter {out['filter_s']:.3f} s; peak device memory "
+        f"{'not measured' if peak is None else f'{peak / 2**30:.2f} GiB'}) "
+        f"on {smi}")
+    return out
+
+
+def phase_fleet(tmp: Path, paths, tlen: int, main_fps: float, smi: str):
+    """run_slam --input s0.npz,...: STREAMS streams, each of the distinct
+    sequences twice. Cold: each stream within FLEET_TOL of its own
+    single-stream run with the same map ids, duplicates identical, B1,
+    B2 and B3 launched, B3 once per frame. Warm: aggregate frames/s
+    (streams x frames over wall time) and peak device memory."""
+    import numpy as np
+    from aruco_slam_tpu_torch.apps import run_slam
+    from aruco_slam_tpu_torch.io import load_map
+    argv = _fleet_argv(tmp, paths, "fleet")
     _reset_counts()
     fleet = run_slam.main(argv)
     launches = _counts()
-    tlen = len(seqs[0][1])
     log(f"[fleet] launches in the run: {launches}")
     _require(launches, "fleet path", ("flood_scan_labels", "refine_corners",
                                       "fused_update"))
@@ -1023,21 +1120,159 @@ def phase_fleet(tmp: Path, seqs, main_fps: float, smi: str):
         f"{worst:.3e} m (tol {FLEET_TOL}); duplicate streams identical; "
         f"ATE per stream {ates}; detections per stream "
         f"{[int(r.obs_mask.sum()) for r in fleet]}")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    warm = run_slam.main(argv)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    fps = STREAMS * tlen / dt
-    peak = warm[0].seconds.get("peak_bytes")
-    log(f"[fleet] warm run: {STREAMS} x {tlen} frames {SIZE[0]}x{SIZE[1]} "
-        f"in {dt:.3f} s = {fps:.2f} frames/s aggregate ({fps / STREAMS:.2f} "
-        f"per stream; front end {warm[0].seconds['front_end']:.3f} s, filter "
-        f"{warm[0].seconds['filter']:.3f} s; peak device memory "
-        f"{'not measured' if peak is None else f'{peak / 2**30:.2f} GiB'}) "
-        f"vs {main_fps:.2f} frames/s for the single-stream main path, on "
-        f"{smi}")
-    return launches
+    warm = _fleet_warm(argv, tlen, "fleet", smi)
+    log(f"[fleet] warm {warm['fps']:.2f} frames/s aggregate vs "
+        f"{main_fps:.2f} frames/s for the single-stream main path, same call")
+    return launches, warm
+
+
+def phase_fleet_streaming(tmp: Path, paths, seqs, full_warm: dict,
+                          smi: str):
+    """run_slam --input s0.npz,... --track-every K with one schedule (G =
+    0) and with FLEET_COHORTS rescue cohorts: on every frame B1 and B2
+    launch as the schedule and the dead flags say (a sweep batch: 3 B1
+    and 1 B2 launches; a tracked batch: 3 B2 launches, for all the
+    streams in it), B3 once a frame. G = 0: each stream within FLEET_TOL
+    of its own single-stream --track-every K run (which must have swept
+    only on its schedule), with the same map ids, duplicates identical.
+    G > 0: cohort 0 (streams 0 and 1 at 8 streams in 4 cohorts) likewise,
+    every stream's ATE under the bound. Warm: aggregate frames/s of both
+    beside the full-detection fleet's."""
+    import numpy as np
+    from aruco_slam_tpu_torch.apps import run_slam
+    from aruco_slam_tpu_torch.io import load_map
+    ke = str(TRACK_EVERY)
+    tlen = len(seqs[0][1])
+    singles = []
+    for i, path in enumerate(paths):
+        record = []
+        with _recording_schedule(record):
+            singles.append(run_slam.main(
+                ["--input", str(path), "--platform", PLATFORM,
+                 "--max-obs", MAX_OBS, "--track-every", ke,
+                 "--trajectory", str(tmp / f"stream{i}.txt"),
+                 "--map", str(tmp / f"stream{i}_map.txt")]))
+        off = [f[0] for f in record if bool(f[2][0]) != (f[0] % TRACK_EVERY
+                                                          < 2)]
+        if len(record) != tlen or off:
+            raise AssertionError(f"fleet streaming: single-stream run {i} "
+                                 f"swept off its schedule on frames {off}")
+    log(f"[fleet-streaming] {len(paths)} single-stream --track-every {ke} "
+        "runs swept on their schedule alone")
+    paths_launches, warm = {}, {}
+    for cohorts, tag in ((0, "fleet-streaming"),
+                         (FLEET_COHORTS, "fleet-cohorts")):
+        argv = _fleet_argv(tmp, paths, tag, "--track-every", ke,
+                           "--rescue-cohorts", str(cohorts))
+        record = []
+        _reset_counts()
+        with _recording_schedule(record):
+            fleet = run_slam.main(argv)
+        launches = _counts()
+        want = [sum(f[1][j] for f in record) for j in range(2)]
+        if not cohorts:
+            # one schedule, no dead flags: the counts follow from K alone
+            sweeps = sum(i % TRACK_EVERY < 2 for i in range(tlen))
+            want = [3 * sweeps, sweeps + 3 * (tlen - sweeps)]
+        wrong = [(f[0], f[1], f[2]) for f in record if f[1] != f[2]]
+        log(f"[{tag}] G = {cohorts}: launches in the run: {launches}; "
+            f"expected from the step's sweep decisions: B1 "
+            f"{want[0]}, B2 {want[1]}, B3 {tlen}; streams due a sweep per "
+            f"frame {[f[3] for f in record]}")
+        _require(launches, f"{tag} path", ("flood_scan_labels",
+                                           "refine_corners", "fused_update"))
+        if (len(record) != tlen or wrong
+                or [launches["flood_scan_labels"],
+                    launches["refine_corners"]] != want
+                or launches["fused_update"] != tlen):
+            raise AssertionError(f"{tag}: launches off the schedule: frames "
+                                 f"(index, expected, made) {wrong}; run "
+                                 f"{launches}, expected {want} and B3 {tlen}")
+        # the streams whose single-stream run each must match: all at G =
+        # 0, cohort 0 at G > 0
+        same = range(STREAMS if not cohorts else STREAMS // cohorts)
+        worst = 0.0
+        for j in same:
+            one = singles[j % len(paths)]
+            err = float(np.abs(fleet[j].cam_traj - one.cam_traj).max())
+            worst = max(worst, err)
+            same_ids = np.array_equal(load_map(fleet[j].map_file)[0],
+                                      load_map(one.map_file)[0])
+            if not err <= FLEET_TOL or not same_ids:
+                raise AssertionError(f"{tag} stream {j}: {err} m from its "
+                                     f"single-stream run, map ids equal "
+                                     f"{same_ids}")
+        if not cohorts:
+            for j in range(len(paths)):
+                twin = fleet[j + len(paths)]
+                if not (np.array_equal(fleet[j].cam_traj, twin.cam_traj)
+                        and Path(fleet[j].map_file).read_text()
+                        == Path(twin.map_file).read_text()):
+                    raise AssertionError(f"{tag}: streams {j} and "
+                                         f"{j + len(paths)} (the same "
+                                         "input) differ")
+        ates = [round(r.ate, 4) for r in fleet]
+        log(f"[{tag}] streams {list(same)}: max |fleet - single| "
+            f"{worst:.3e} m (tol {FLEET_TOL}); "
+            f"{'duplicate streams identical; ' if not cohorts else ''}ATE "
+            f"per stream {ates} (bound {ATE_BOUND}); detections per stream "
+            f"{[int(r.obs_mask.sum()) for r in fleet]}")
+        if not max(ates) < ATE_BOUND:
+            raise AssertionError(f"{tag}: ATE {max(ates)} m >= {ATE_BOUND}")
+        paths_launches[tag] = launches
+        warm[tag] = _fleet_warm(argv, tlen, tag, smi)
+    log("[fleet-streaming] warm aggregate frames/s, same call: full "
+        f"detection {full_warm['fps']:.2f}, --track-every {ke} "
+        f"{warm['fleet-streaming']['fps']:.2f}, with {FLEET_COHORTS} rescue "
+        f"cohorts {warm['fleet-cohorts']['fps']:.2f}; front end less load "
+        f"(s): {full_warm['front_end_less_load_s']:.3f} / "
+        f"{warm['fleet-streaming']['front_end_less_load_s']:.3f} / "
+        f"{warm['fleet-cohorts']['front_end_less_load_s']:.3f}")
+    return paths_launches
+
+
+def phase_prefetch(npz: Path, main_res, dev):
+    """The main path's frames, from a generator standing in for a video
+    decoder, through `io.PrefetchingFrameSource` into the image front
+    end: the same observations as the frames fed directly, and the main
+    run's accepted observations."""
+    import numpy as np
+    import torch
+    from aruco_slam_tpu_torch.apps import run_slam
+    from aruco_slam_tpu_torch.config import SlamAppConfig
+    from aruco_slam_tpu_torch.io import NpzSource, PrefetchingFrameSource
+    src = NpzSource(npz)
+    images = src["images"]
+    cfg = SlamAppConfig(input=str(npz),
+                        marker_size=float(src["marker_size"]))
+    cam = run_slam._camera(src["camera_matrix"], src["dist_coeffs"], dev)
+
+    def decoded():
+        for ts, im in zip(src.times, images):
+            yield float(ts), im
+
+    out = {}
+    for tag, frames in (("direct", decoded),
+                        ("ring", lambda: PrefetchingFrameSource(
+                            decoded(), images.shape[1:], capacity=16))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        obs = run_slam._observations_from_frames(frames(), cam, cfg, dev)
+        torch.cuda.synchronize()
+        out[tag] = (obs, time.perf_counter() - t0)
+    (direct, t_direct), (ring, t_ring) = out["direct"], out["ring"]
+    # (unobserved slots' poses are NaN on both)
+    same = all(np.array_equal(a, b, equal_nan=True) for j, (a, b) in
+               enumerate(zip(direct, ring)) if j != 4 and a is not None)
+    as_main = np.array_equal(ring[3], main_res.obs_mask)
+    log(f"[prefetch] {len(images)} frames {SIZE[0]}x{SIZE[1]} through "
+        f"PrefetchingFrameSource (capacity 16): observations identical to "
+        f"the direct feed {same}, accepted observations equal to the main "
+        f"run's {as_main}; front end {t_ring:.3f} s through the ring, "
+        f"{t_direct:.3f} s fed directly")
+    if not (same and as_main):
+        raise AssertionError("prefetch: the ring changed the front end's "
+                             "observations")
 
 
 def main() -> int:
@@ -1104,7 +1339,7 @@ def main() -> int:
                 "--map", str(Path(tmp) / "map.txt")]
         main_launches, main_res, main_fps = phase_main(argv, traj.cam_t,
                                                        smi)
-        # every path runs one chunk: CHUNK frames (the fleet: CHUNK
+        # every path runs one chunk: CHUNK frames (the fleets: CHUNK
         # frames of each stream; recycling: its 12 frames)
         paths = {"main": main_launches,
                  "stencil-only": phase_stencil_only(frames, dev),
@@ -1115,14 +1350,18 @@ def main() -> int:
                  "rotations": phase_rotations(argv, traj.cam_t, main_fps,
                                               smi),
                  "recycling": phase_recycling(Path(tmp), dev)}
+        phase_prefetch(npz, main_res, dev)
         dist = np.asarray(app.dist_coeffs)
-        paths["fleet"] = phase_fleet(Path(tmp), [
-            (f, traj.times, gt, k, dist)
-            for f, gt in ((frames, traj.cam_t),
-                          (frames[::-1], traj.cam_t[::-1]),
-                          (frames2, traj.cam_t),
-                          (frames2[::-1], traj.cam_t[::-1]))],
-            main_fps, smi)
+        seqs = [(f, traj.times, gt, k, dist)
+                for f, gt in ((frames, traj.cam_t),
+                              (frames[::-1], traj.cam_t[::-1]),
+                              (frames2, traj.cam_t),
+                              (frames2[::-1], traj.cam_t[::-1]))]
+        fleet_paths = _fleet_inputs(Path(tmp), seqs)
+        paths["fleet"], full_warm = phase_fleet(
+            Path(tmp), fleet_paths, CHUNK, main_fps, smi)
+        paths.update(phase_fleet_streaming(Path(tmp), fleet_paths, seqs,
+                                           full_warm, smi))
     # launches: the main path's, or for B4 and B5 (which the main path
     # does not run) their own path's
     own = {"flood_labels": "stencil-only", "refine_offsets": "refine_corners"}

@@ -6,6 +6,7 @@ f32 by hand). Tolerances are stated beside each comparison.
 """
 
 import ast
+import time
 from pathlib import Path
 
 import numpy as np
@@ -357,6 +358,88 @@ def test_video_source_imageio_route_matches_jax(monkeypatch, host_lib):
         for (ts, g), (ts_j, g_j) in zip(got, want):
             assert ts == ts_j
             assert g.dtype == g_j.dtype and np.array_equal(g, g_j)
+
+
+def _frames(n, shape=(8, 8)):
+    for i in range(n):
+        yield i / 30.0, np.full(shape, i, np.uint8)
+
+
+def test_prefetch_source_order_values_timestamps():
+    """tests/test_utils_native.py's prefetch case on the port's ring: 10
+    frames at capacity 3 come out in order, values and f64 timestamps
+    exact, each a uint8 copy of the frame shape."""
+    from aruco_slam_tpu_torch import io as tio
+    src = tio.PrefetchingFrameSource(_frames(10), (8, 8), capacity=3)
+    got = list(src)
+    assert len(got) == 10
+    assert got[5][1][0, 0] == 5
+    assert abs(got[5][0] - 5 / 30.0) < 1e-9
+    for (ts, g), (ts_w, g_w) in zip(got, _frames(10)):
+        assert ts == ts_w and type(ts) is float
+        assert g.dtype == np.uint8 and np.array_equal(g, g_w)
+    src.thread.join(timeout=10)
+    assert not src.thread.is_alive()
+
+
+def test_prefetch_source_early_break_ends_the_thread():
+    """A consumer that stops early leaves no thread blocked on the full
+    queue, and the decode iterator is closed."""
+    from aruco_slam_tpu_torch import io as tio
+    closed = []
+
+    def endless():
+        try:
+            i = 0
+            while True:
+                yield float(i), np.zeros((4, 4), np.uint8)
+                i += 1
+        finally:
+            closed.append(True)
+
+    src = tio.PrefetchingFrameSource(endless(), (4, 4), capacity=2)
+    for ts, _ in src:
+        if ts == 3.0:
+            break
+    src.thread.join(timeout=10)
+    assert not src.thread.is_alive() and closed == [True]
+
+
+def test_prefetch_source_never_iterated_decodes_nothing():
+    """A consumer that fails before it iterates (the source is built, the
+    camera or the front end's checks then raise) leaves no thread and no
+    decode running, and `close` closes the decode iterator."""
+    from aruco_slam_tpu_torch import io as tio
+    decoded = []
+
+    def counted():
+        for item in _frames(40):
+            decoded.append(item[0])
+            yield item
+
+    frames = counted()
+    src = tio.PrefetchingFrameSource(frames, (8, 8), capacity=2)
+    time.sleep(0.2)
+    assert not src.thread.is_alive() and decoded == []
+    src.close()
+    assert next(frames, None) is None and decoded == []
+    assert list(src) == []
+
+
+def test_prefetch_source_raises_the_decode_error():
+    """An exception in the decode thread reaches the consumer after the
+    frames decoded before it (a truncated video is not a shorter run)."""
+    from aruco_slam_tpu_torch import io as tio
+
+    def truncated():
+        yield from _frames(4)
+        raise OSError("truncated stream")
+
+    got = []
+    with pytest.raises(OSError, match="truncated stream"):
+        for item in tio.PrefetchingFrameSource(truncated(), (8, 8), 2):
+            got.append(item)
+    assert [ts for ts, _ in got] == [i / 30.0 for i in range(4)]
 
 
 def _imports(tree):

@@ -501,3 +501,105 @@ def test_run_slam_cuda_matches_cpu(device, tmp_path):
     # same math; sums (cumsum, GEMMs, reductions) in other orders
     np.testing.assert_allclose(tc, tp, atol=2e-3)
     assert rc.ate < 0.3
+
+
+def _fleet_streams():
+    """Four 8-frame video-rate 720x405 streams (S, T, H, W): windows of
+    the first 12 frames of a 300-frame orbit, two of them reversed."""
+    from aruco_slam_tpu_torch.bench import render, synthetic
+    from aruco_slam_tpu_torch.core import camera as cam_mod
+    k = np.array([[530.59, 0.0, 362.63], [0.0, 530.59, 204.11],
+                  [0.0, 0.0, 1.0]])
+    scene = synthetic.make_wall_scene(num_markers=10, seed=0)
+    traj = synthetic.make_orbit_trajectory(num_frames=300)
+    traj = synthetic.Trajectory(*(a[:12] for a in traj))
+    frames = render.render_sequence(
+        scene, traj, cam_mod.CameraModel.from_matrix(k, np.zeros(5)),
+        image_size=(720, 405))
+    return np.stack([frames[:8], frames[4:12], frames[11:3:-1],
+                     frames[7::-1]])
+
+
+def _fleet_scan(seq, dev, step):
+    """Step the (S, T, H, W) streams frame by frame on ``dev``: the final
+    carry and the (T, S, ...) corners and masks."""
+    from aruco_slam_tpu_torch.ops import detect
+    cfg = detect.DetectorConfig()
+    cr = detect.streaming_init(cfg, streams=len(seq), mapped=True,
+                               device=dev)
+    cs, ms = [], []
+    for im in torch.from_numpy(np.swapaxes(seq, 0, 1).copy()).to(dev):
+        cr, (c, m) = step(cr, im)
+        cs.append(c)
+        ms.append(m)
+    return cr, torch.stack(cs), torch.stack(ms)
+
+
+@pytest.mark.parametrize("cohorts", [0, 2])
+def test_fleet_streaming_cuda_matches_cpu(device, cohorts):
+    """`streaming_step(streams=4, mapped=True)` at K = 4 on the card
+    against the CPU (plain versions): masks and slot tables equal,
+    corners within B2's 2e-3 px."""
+    from aruco_slam_tpu_torch.ops import detect
+    seq = _fleet_streams()
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        step = detect.streaming_step(detect.DetectorConfig(), 4, streams=4,
+                                     mapped=True, rescue_cohorts=cohorts)
+        cr, cs, ms = _fleet_scan(seq, dev, step)
+        out[dev.type] = (cr[3].cpu(), cr[-1], cs.cpu(), ms.cpu())
+    (tab, idx, cs, ms), (tab_p, idx_p, cs_p, ms_p) = out["cuda"], out["cpu"]
+    assert torch.equal(ms, ms_p) and torch.equal(tab, tab_p)
+    assert idx == idx_p == seq.shape[1]
+    assert float((cs - cs_p).abs().max()) <= 2e-3
+    assert int(ms_p.sum(-1).min()) >= 2
+
+
+def test_tracked_fleet_frame_launches_b2_three_times(device):
+    """A tracked frame of 4 streams makes 3 B2 launches (one a tracker
+    schedule for all streams) and no B1 launch; a full frame 3 B1
+    launches and 1 B2 launch."""
+    from aruco_slam_tpu_torch.ops import detect
+    cfg = detect.DetectorConfig()
+    seq = torch.from_numpy(_fleet_streams()).to(device)
+    state = detect.streaming_init(cfg, streams=4, mapped=True,
+                                  device=device)[:-1]
+    for f, full, b1, b2 in ((0, True, 3, 1), (1, False, 0, 3),
+                            (2, False, 0, 3)):
+        before = (cuda_cc.flood_scan_labels.launches,
+                  cuda_subpix.refine_corners.launches)
+        state = detect.detect_or_track_batch_mapped(seq[:, f], *state, full,
+                                                    cfg)
+        torch.cuda.synchronize()
+        assert (cuda_cc.flood_scan_labels.launches - before[0],
+                cuda_subpix.refine_corners.launches - before[1]) == (b1, b2)
+    assert int(state[1].sum(-1).min()) >= 2
+
+
+@pytest.mark.parametrize("cohorts", [2, 4])
+def test_cohort_batching_bit_identical_on_card(device, cohorts):
+    """The cohort step's one sweep batch and one tracked batch a frame
+    give each stream exactly what one branch per cohort (the JAX
+    package's structure) gives it on the card."""
+    from aruco_slam_tpu_torch.ops import detect
+    cfg = detect.DetectorConfig()
+    per = 4 // cohorts
+
+    def per_cohort(cr, im):
+        state, i = cr[:-1], cr[-1]
+        parts = []
+        for g in range(cohorts):
+            sl = slice(g * per, (g + 1) * per)
+            due = ((i + g * 4 // cohorts) % 4) < 2 \
+                or bool((~state[1][sl].any(-1)).any())
+            parts.append(detect.detect_or_track_batch_mapped(
+                im[sl], *(x[sl] for x in state), due, cfg))
+        out = tuple(torch.cat(xs) for xs in zip(*parts))
+        return (*out, i + 1), out[:2]
+
+    seq = _fleet_streams()
+    got = _fleet_scan(seq, device, detect.streaming_step(
+        cfg, 4, streams=4, mapped=True, rescue_cohorts=cohorts))
+    want = _fleet_scan(seq, device, per_cohort)
+    for g, w in zip((*got[0][:-1], *got[1:]), (*want[0][:-1], *want[1:])):
+        assert torch.equal(g, w)

@@ -299,10 +299,11 @@ def test_run_slam_fleet_matches_jax(stream_files, tmp_path, monkeypatch):
 @pytest.mark.parametrize("flags,error", [
     (["--slot-max-age", "9"], SystemExit),
     (["--filter", "factorgraph"], SystemExit),
-    (["--track-every", "8"], NotImplementedError)])
+    (["--track-every", "4", "--rescue-cohorts", "3"], ValueError)])
 def test_fleet_refusals(tmp_path, flags, error):
     """As the JAX run_slam: recycling and the factor graph refuse with
-    several inputs; fleet streaming is not ported yet. Nothing runs."""
+    several inputs, and rescue cohorts must divide the stream count (a
+    check made before any input is read). Nothing runs."""
     with pytest.raises(error):
         trun.main(["--input", "a.npz,b.npz", "--platform", "cpu",
                    "--trajectory", str(tmp_path / "t.txt"),

@@ -4,9 +4,10 @@
 run on the same rendered npz on the CPU, with full detection on every
 frame, with the streaming tracker (``--track-every``), with 6-dof
 landmarks (``--filter mekf_rotations``), a preloaded map
-(``--load-map``) and slot recycling (``--slot-max-age``); plus the
-port's import hygiene (no jax) and its refusal to run "cuda" without a
-card.
+(``--load-map``) and slot recycling (``--slot-max-age``); the JAX
+run_slam's flags, the fleet's viewer note and video through the decode
+ring; plus the port's import hygiene (no jax) and its refusal to run
+"cuda" without a card.
 """
 
 import os
@@ -151,6 +152,131 @@ def test_track_every_refusals(video_rate, flags, error):
 def test_unported_paths_refuse(sequence, flags):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         trun.main(["--input", str(sequence), "--platform", "cpu", *flags])
+
+
+@pytest.fixture(scope="module")
+def poses(tmp_path_factory):
+    """A pose-level bundle (12 frames, 6 markers): the filter alone."""
+    from aruco_slam_tpu.apps import make_synthetic
+    b = make_synthetic.build(frames=12, markers=6, capacity=16,
+                             noise_t=0.005, noise_r=0.005)
+    path = tmp_path_factory.mktemp("poses") / "poses.npz"
+    save_npz(path, **{k: b[k] for k in ("times", "t_cl", "q_cl", "mask",
+                                        "gt_cam_t", "marker_size")})
+    return path
+
+
+# every flag of the JAX run_slam the port once rejected as unknown
+JAX_FLAGS = [["--window", "4"], ["--pose-budget", "64"],
+             ["--meas-sigma-t", "0.02"], ["--odom-sigma-t", "0.5"],
+             ["--odom-sigma-rot", "0.5"], ["--huber-delta", "1.0"],
+             ["--ba-rotations"], ["--checkpoint", "{tmp}/ck.npz"],
+             ["--viz-dir", "{tmp}/viz"], ["--viz-3d-renderer", "fast"],
+             ["--export-video"], ["--profile", "{tmp}/prof"]]
+
+
+@pytest.mark.parametrize("flags", JAX_FLAGS, ids=lambda f: f[0])
+def test_jax_run_slam_flags_parse(poses, tmp_path, flags):
+    """Each flag parses. The factor graph's tuning, --checkpoint and the
+    viewer modifiers leave an MEKF run as it was without them (as in
+    the JAX run_slam) and write nothing of their own; --profile, a
+    device trace not ported yet, refuses before anything runs."""
+    flags = [f.format(tmp=tmp_path) for f in flags]
+
+    def run(tag, *extra):
+        return trun.main(["--input", str(poses), "--platform", "cpu",
+                          "--filter", "mekf",
+                          "--trajectory", str(tmp_path / f"{tag}.txt"),
+                          "--map", str(tmp_path / f"{tag}_map.txt"), *extra])
+
+    if flags[0] == "--profile":
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            run("profiled", *flags)
+        assert not list(tmp_path.iterdir())
+        return
+    base, got = run("base"), run("flag", *flags)
+    np.testing.assert_array_equal(got.cam_traj, base.cam_traj)
+    assert Path(got.map_file).read_text() == Path(base.map_file).read_text()
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "base.txt", "base_map.txt", "flag.txt", "flag_map.txt"]
+
+
+@pytest.fixture(scope="module")
+def blank_streams(tmp_path_factory):
+    """Two 3-frame 160x96 image streams with nothing in view."""
+    root = tmp_path_factory.mktemp("blank")
+    paths = [root / f"b{i}.npz" for i in range(2)]
+    for i, path in enumerate(paths):
+        save_npz(path, times=np.arange(3) / 30.0,
+                 images=np.full((3, 96, 160), 120 + 40 * i, np.uint8))
+    return paths
+
+
+@pytest.mark.parametrize("flag", ["--viz-2d", "--viz-3d", "--display"])
+def test_fleet_serves_with_viewer_flags(blank_streams, tmp_path, capsys,
+                                        flag):
+    """With several inputs the viewer flags print the JAX run_slam's
+    note and the fleet is served as without them."""
+    out = {}
+    for tag, extra in (("with", [flag]), ("without", [])):
+        out[tag] = trun.main(
+            ["--input", ",".join(map(str, blank_streams)), "--platform",
+             "cpu", "--track-every", "4",
+             "--trajectory", str(tmp_path / f"{tag}.txt"),
+             "--map", str(tmp_path / f"{tag}_map.txt"), *extra])
+        out[tag + "_log"] = capsys.readouterr().out
+    assert "note: viz/display are per-stream features" in out["with_log"]
+    assert "note:" not in out["without_log"]
+    assert len(out["with"]) == 2
+    for a, b in zip(out["with"], out["without"]):
+        np.testing.assert_array_equal(a.cam_traj, b.cam_traj)
+        assert Path(a.trajectory_file).is_file()
+
+
+def test_run_slam_video_through_the_ring(video_rate, tmp_path, monkeypatch):
+    """A video input (a cv2 MJPG .avi of the video-rate frames) goes
+    through `io.PrefetchingFrameSource`, and gives exactly the
+    trajectory and map of the same run decoding in the calling thread."""
+    import cv2
+    from aruco_slam_tpu_torch import io as tio
+    seq = np.load(video_rate)
+    path = tmp_path / "clip.avi"
+    h, w = seq["images"].shape[1:]
+    out = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"MJPG"), 30.0,
+                          (w, h))
+    assert out.isOpened()
+    for im in seq["images"]:
+        out.write(cv2.cvtColor(im, cv2.COLOR_GRAY2BGR))
+    out.release()
+    calib = tmp_path / "calib"
+    calib.mkdir()
+    np.save(calib / "camera_matrix.npy", seq["camera_matrix"])
+    np.save(calib / "dist_coeffs.npy", seq["dist_coeffs"])
+    rings = []
+
+    class Recorded(tio.PrefetchingFrameSource):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            rings.append(self)
+
+    def run(tag):
+        return trun.main(["--input", str(path), "--platform", "cpu",
+                          "--calib", str(calib), "--track-every", "4",
+                          "--trajectory", str(tmp_path / f"{tag}.txt"),
+                          "--map", str(tmp_path / f"{tag}_map.txt")])
+
+    monkeypatch.setattr(trun, "PrefetchingFrameSource", Recorded)
+    ring = run("ring")
+    assert len(rings) == 1
+    rings[0].thread.join(timeout=10)
+    assert not rings[0].thread.is_alive()
+    monkeypatch.setattr(trun, "PrefetchingFrameSource",
+                        lambda frames, shape: frames)
+    sync = run("sync")
+    assert ring.cam_traj.shape == (len(seq["images"]), 7)
+    assert ring.obs_mask.sum(axis=1).min() >= 3
+    np.testing.assert_array_equal(ring.cam_traj, sync.cam_traj)
+    assert Path(ring.map_file).read_text() == Path(sync.map_file).read_text()
 
 
 def test_run_slam_rotations_matches_jax(sequence, tmp_path, monkeypatch):

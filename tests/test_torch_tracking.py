@@ -152,9 +152,3 @@ def test_streaming_step_mapped_matches_scan(video):
     for f in (2, 3, 6, 7, 10, 11):
         assert jms[f].sum() >= max(jms[f - 1].sum() - 1, 3), f
 
-
-def test_streaming_fleet_forms_refuse():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        td.streaming_step(TCFG, 4, streams=2)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        td.streaming_init(TCFG, streams=2)
