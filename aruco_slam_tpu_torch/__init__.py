@@ -4,14 +4,17 @@ A second implementation of `aruco_slam_tpu` (the JAX/Pallas package,
 which stays the reference) for one NVIDIA Hopper GPU. Same layout and
 function names as the JAX package:
 
-* ``core``     — quaternion and pinhole-camera math on tensors.
+* ``core``     — quaternion, SO(3) and pinhole-camera math on tensors.
 * ``ops``      — IPPE-square PnP and the image-domain ArUco detector;
                  ``cuda_cc`` / ``cuda_subpix`` wrap the hand-written
                  labeling and subpixel kernels.
 * ``filters``  — the MEKF; ``cuda_mekf`` wraps the fused update kernel.
-* ``bench``    — numpy fixtures (synthetic scenes, the renderer) and ATE.
-* ``apps``     — the ``run_slam`` CLI; ``config`` and ``io`` hold the
-                 JAX package's app config and file formats.
+* ``graph``    — the factor graph: windowed and batch Levenberg-Marquardt
+                 bundle adjustment with a dense Schur complement.
+* ``bench``    — numpy fixtures (synthetic scenes, the renderer), ATE and
+                 the online factor-graph benchmark.
+* ``apps``     — the ``run_slam`` and ``run_offline`` CLIs; ``config`` and
+                 ``io`` hold the JAX package's app config and file formats.
 
 Every kernel lives in ``csrc/`` as CUDA C++ for sm_90a, is built with
 nvcc on first use (``_build``) and is called through ctypes. A kernel

@@ -1,13 +1,19 @@
 """Online SLAM command line on PyTorch/CUDA.
 
-Counterpart of aruco_slam_tpu/apps/run_slam.py for its MEKF paths:
+Counterpart of aruco_slam_tpu/apps/run_slam.py:
 
     python -m aruco_slam_tpu_torch.apps.run_slam --input seq.npz \
-        [--platform cuda|cpu] [--filter mekf|mekf_rotations]
+        [--platform cuda|cpu] [--filter mekf|mekf_rotations|factorgraph]
 
 frames -> `ops.detect.detect_markers_batch_lru` (robust sweep, chunks
-of 32) -> `ops.pnp.solve_square_pnp` -> `filters.mekf.mekf_scan` ->
-TUM trajectory + map files in the JAX run_slam's formats.
+of 32) -> `ops.pnp.solve_square_pnp` -> the backend -> TUM trajectory +
+map files in the JAX run_slam's formats. The MEKF backends run
+`filters.mekf.mekf_scan`; ``--filter factorgraph`` runs the windowed
+factor graph frame by frame (`graph.add_frame`, `optimize_window` and,
+past ``--pose-budget``, `marginalize_poses`; ``--ba-rotations`` for
+6-dof landmarks), tuned by ``--window``, ``--meas-sigma-t``,
+``--odom-sigma-*`` and ``--huber-delta``, with recycled slots split
+into per-epoch landmark columns (`epoch_remap`).
 npz input may carry `images`, `corners` or pose-level `t_cl` bundles;
 video input is decoded by the port's own `io.VideoSource` on a
 background thread (`io.PrefetchingFrameSource`), so decode overlaps
@@ -25,9 +31,9 @@ cohorts; the S filters in one batched step; per-stream output files).
 the run never moves to the CPU in its place. Every flag of the JAX
 run_slam parses: the factor graph's tuning flags are accepted and
 unused on the MEKF paths, as there; the paths not ported yet (the
-factor graph, the viewers, checkpoints, ``--profile``) are refused with
-a "not ported yet" error, except that with several inputs the viewer
-flags print the JAX run_slam's note and the fleet is served.
+viewers, checkpoints, ``--profile``) are refused with a "not ported
+yet" error, except that with several inputs the viewer flags print the
+JAX run_slam's note and the fleet is served.
 """
 
 from __future__ import annotations
@@ -48,6 +54,9 @@ from aruco_slam_tpu_torch.core import camera as cam_mod
 from aruco_slam_tpu_torch.filters import mekf as mekf_mod
 from aruco_slam_tpu_torch.filters import (
     FrameObservations, MekfConfig, init_state, mekf_scan)
+from aruco_slam_tpu_torch.graph import (
+    GraphConfig, add_frame, init_graph, landmark_covariances,
+    marginalize_poses, optimize_window)
 from aruco_slam_tpu_torch.io import (
     NpzSource, PrefetchingFrameSource, TrajectoryWriter, is_video, load_map,
     save_map, video_frames)
@@ -184,6 +193,20 @@ def _prefetched_video(path: str):
         frames, first[1].shape))
 
 
+def load_video_observations(cfg: SlamAppConfig, calib_dir,
+                            device: torch.device):
+    """A video's loader tuple (see `load_observations`): the camera from
+    ``calib_dir``'s camera_matrix.npy + dist_coeffs.npy (else the
+    config's), frames decoded ahead on a thread into the front end."""
+    k, d = cfg.camera_matrix, cfg.dist_coeffs
+    if calib_dir:
+        k = np.load(Path(calib_dir) / "camera_matrix.npy")
+        d = np.load(Path(calib_dir) / "dist_coeffs.npy")
+    cam = _camera(k, d, device)
+    return _observations_from_frames(_prefetched_video(cfg.input), cam, cfg,
+                                     device)
+
+
 def load_observations(src: NpzSource, cfg: SlamAppConfig,
                       device: torch.device):
     """Return (times, t_cl (T,C,3), q_cl (T,C,4), mask (T,C), cam,
@@ -300,6 +323,116 @@ def run_mekf(cfg: SlamAppConfig, times, t_cl, q_cl, mask, cam,
     unc = mekf_mod.landmark_uncertainties(fcfg, state).cpu().numpy()
     return (traj.cpu().numpy(), state.active.cpu().numpy(),
             state.lm.cpu().numpy()[:, :3], unc[:, :3])
+
+
+def epoch_remap(t_cl, q_cl, mask, reset, ids_seq):
+    """Split recycled slots into per-epoch landmark columns (host numpy,
+    the JAX run_slam's `epoch_remap`).
+
+    The factor graph keys landmarks by column, and LRU recycling
+    (``--slot-max-age``) makes one detector slot host several markers
+    over a run; each (slot, epoch) pair, the epoch counting the slot's
+    resets up to the frame, gets its own column. Returns (t_cl, q_cl,
+    mask, col_ids) with one column per observed (slot, epoch) pair;
+    ``col_ids`` maps column -> marker id from ``ids_seq``, the per-frame
+    table snapshots."""
+    t, c = mask.shape
+    epoch = np.cumsum(np.asarray(reset, np.int64), axis=0)  # (T, C)
+    key = epoch * c + np.arange(c)[None, :]
+    used = np.unique(key[mask])
+    col = np.searchsorted(used, key)                        # (T, C)
+    l2 = len(used)
+    rows = np.broadcast_to(np.arange(t)[:, None], (t, c))
+    t_cl2 = np.zeros((t, l2) + t_cl.shape[2:], t_cl.dtype)
+    q_cl2 = np.zeros((t, l2) + q_cl.shape[2:], q_cl.dtype)
+    mask2 = np.zeros((t, l2), bool)
+    t_cl2[rows[mask], col[mask]] = t_cl[mask]
+    q_cl2[rows[mask], col[mask]] = q_cl[mask]
+    mask2[rows[mask], col[mask]] = True
+    col_ids = np.full(l2, -1, np.int64)
+    col_ids[col[mask]] = ids_seq[mask]
+    return t_cl2, q_cl2, mask2, col_ids
+
+
+def _resolve_recycling(obs):
+    """A loader 9-tuple -> the 7-tuple the graph consumes (times, t_cl,
+    q_cl, mask, cam, ambiguity, slot_ids): recycled slots epoch-split
+    into fresh landmark columns (nothing changes when none recycled)."""
+    times, t_cl, q_cl, mask, cam, amb, slot_ids, reset, ids_seq = obs
+    if reset is not None and np.asarray(reset).any():
+        n0 = t_cl.shape[1]
+        t_cl, q_cl, mask, slot_ids = epoch_remap(
+            np.asarray(t_cl), np.asarray(q_cl), np.asarray(mask),
+            np.asarray(reset), np.asarray(ids_seq))
+        amb = None  # the per-slot layout no longer matches
+        print(f"slot recycling: split {n0} detector slots into "
+              f"{t_cl.shape[1]} per-epoch landmark columns")
+    return times, t_cl, q_cl, mask, cam, amb, slot_ids
+
+
+def graph_config(cfg: SlamAppConfig, max_poses: int, max_landmarks: int,
+                 max_factors: int, cam, with_rotations: bool,
+                 dtype: torch.dtype = torch.float32) -> GraphConfig:
+    """Driver flags -> GraphConfig (run_slam's online graph and
+    run_offline's batch solve)."""
+    return GraphConfig(max_poses=max_poses, max_landmarks=max_landmarks,
+                       max_factors=max_factors,
+                       meas_sigma_t=cfg.meas_sigma_t,
+                       odom_sigma_t=cfg.odom_sigma_t,
+                       odom_sigma_rot=cfg.odom_sigma_rot,
+                       pixel_sigma=cfg.pixel_sigma, focal_px=float(cam.fx),
+                       marker_size=cfg.marker_size,
+                       huber_delta=cfg.huber_delta,
+                       with_rotations=with_rotations, dtype=dtype)
+
+
+def run_factorgraph(cfg: SlamAppConfig, times, t_cl, q_cl, mask, cam,
+                    device: torch.device, with_rotations: bool = False,
+                    dtype: torch.dtype = torch.float32):
+    """The online factor graph over the whole sequence: per frame
+    `add_frame` and a ``cfg.window``-pose `optimize_window`; with a pose
+    budget shorter than the run, the oldest half of the poses is
+    marginalized whenever the graph is full. The pose count is tracked
+    on the host (the graph's is deterministic), so the frame loop reads
+    nothing back: the trajectory is read once at the end, then the
+    landmark covariances. Returns (cam_traj (T, 7), active (L,),
+    landmark positions (L, 3), uncertainties (L, D))."""
+    t = len(times)
+    budget = cfg.pose_budget
+    if budget and budget < t + 2:
+        max_poses = max(budget, 2 * cfg.window + 4)
+        if max_poses > budget:
+            print(f"pose budget raised {budget} -> {max_poses}: the "
+                  f"{cfg.window}-pose window needs headroom to "
+                  "marginalize safely")
+        max_factors = int(mask.sum(1).max()) * max_poses + 8
+    else:
+        max_poses, max_factors = t + 2, int(mask.sum()) + 8
+    gcfg = graph_config(cfg, max_poses, t_cl.shape[1], max_factors, cam,
+                        with_rotations, dtype)
+    state = init_graph(gcfg, device=device)
+    t_cl_d, mask_d = _dev(t_cl, device), _dev(mask, device)
+    q_cl_d = _dev(q_cl, device) if with_rotations else None
+    num, drop = 1, max_poses // 2
+    poses = []
+    t0 = time.perf_counter()
+    for i in range(t):
+        state = add_frame(gcfg, state, t_cl_d[i], mask_d[i],
+                          None if q_cl_d is None else q_cl_d[i])
+        num = min(num + 1, max_poses)
+        state, _ = optimize_window(gcfg, state, window=cfg.window,
+                                   iters=cfg.window_iters)
+        cur = num - 2
+        poses.append(torch.cat([state.pose_t[cur], state.pose_q[cur]]))
+        if budget and num >= max_poses - 1:
+            state = marginalize_poses(gcfg, state, drop)
+            num = max(num - drop, 1)
+    cam_traj = torch.stack(poses).cpu().numpy().astype(np.float32)
+    dt = time.perf_counter() - t0
+    print(f"factorgraph online: {t} frames in {dt:.3f}s ({t / dt:.1f} fps)")
+    unc = torch.diagonal(landmark_covariances(gcfg, state), dim1=-2, dim2=-1)
+    return (cam_traj, state.lm_active.cpu().numpy(), state.lm.cpu().numpy(),
+            unc.cpu().numpy())
 
 
 def _stream_path(path: str, i: int) -> str:
@@ -517,7 +650,8 @@ def _parser() -> argparse.ArgumentParser:
                         "frames apart); a stream that loses every marker "
                         "sweeps its own cohort at the next frame. G must "
                         "divide the stream count; 0 = one schedule")
-    # the factor graph's tuning (accepted, unused by the MEKF paths)
+    # the factor graph's tuning (--filter factorgraph; accepted and
+    # unused by the MEKF paths, as in the JAX run_slam)
     p.add_argument("--window", type=int, default=dflt.window)
     p.add_argument("--pose-budget", type=int, default=dflt.pose_budget)
     p.add_argument("--meas-sigma-t", type=float, default=dflt.meas_sigma_t)
@@ -564,8 +698,6 @@ def main(argv=None) -> RunResult | list[RunResult]:
                 and len(inputs) % args.rescue_cohorts:
             raise ValueError(f"rescue_cohorts={args.rescue_cohorts} must "
                              f"divide streams={len(inputs)}")
-    if args.filter == "factorgraph":
-        _not_ported("--filter factorgraph")
     for flag, on in (("--viz-2d", args.viz_2d and not fleet),
                      ("--viz-3d", args.viz_3d and not fleet),
                      ("--display", args.display and not fleet),
@@ -604,32 +736,36 @@ def main(argv=None) -> RunResult | list[RunResult]:
     t0 = time.perf_counter()
     if is_video(cfg.input):
         src = None
-        k, d = cfg.camera_matrix, cfg.dist_coeffs
-        if args.calib:
-            k = np.load(Path(args.calib) / "camera_matrix.npy")
-            d = np.load(Path(args.calib) / "dist_coeffs.npy")
-        cam = _camera(k, d, device)
-        obs = _observations_from_frames(_prefetched_video(cfg.input), cam,
-                                        cfg, device)
+        obs = load_video_observations(cfg, args.calib, device)
     else:
         src = NpzSource(cfg.input)
         seconds["load"] = time.perf_counter() - t0
         obs = load_observations(src, cfg, device)
-    times, t_cl, q_cl, mask, cam, amb, slot_ids, reset, _ids = obs
     _sync(device)
     seconds["front_end"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    cam_traj, active, lm, unc = run_mekf(
-        cfg, times, t_cl, q_cl, mask, cam, device,
-        with_rotations=cfg.filter == "mekf_rotations",
-        load_map_file=args.load_map, ambiguity=amb, slot_ids=slot_ids,
-        reset=reset)
+    if cfg.filter == "factorgraph":
+        # the graph keys landmarks by column and has no reset: recycled
+        # slots become fresh columns (the MEKF consumes `reset` itself)
+        times, t_cl, q_cl, mask, cam, amb, slot_ids = \
+            _resolve_recycling(obs)
+        cam_traj, active, lm, unc = run_factorgraph(
+            cfg, times, t_cl, q_cl, mask, cam, device,
+            with_rotations=args.ba_rotations)
+    else:
+        times, t_cl, q_cl, mask, cam, amb, slot_ids, reset, _ids = obs
+        cam_traj, active, lm, unc = run_mekf(
+            cfg, times, t_cl, q_cl, mask, cam, device,
+            with_rotations=cfg.filter == "mekf_rotations",
+            load_map_file=args.load_map, ambiguity=amb, slot_ids=slot_ids,
+            reset=reset)
     _sync(device)
     seconds["filter"] = time.perf_counter() - t0
     tt = len(times)
+    stage = "graph" if cfg.filter == "factorgraph" else "filter"
     print(f"front end: {tt} frames in {seconds['front_end']:.3f}s; "
-          f"filter: {seconds['filter']:.3f}s ({device})")
+          f"{stage}: {seconds['filter']:.3f}s ({device})")
 
     with TrajectoryWriter(cfg.trajectory_file) as w:
         for ts, pose in zip(times, cam_traj):

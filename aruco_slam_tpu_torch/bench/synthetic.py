@@ -1,8 +1,8 @@
 """Synthetic ArUco-marker scenes with exact ground truth (numpy).
 
 Counterpart of aruco_slam_tpu/bench/synthetic.py: the same seeds give
-the same scenes, trajectories and corner observations; projection goes
-through the port's camera (in float64 on the CPU).
+the same scenes, trajectories, pose-level and corner observations;
+projection goes through the port's camera (in float64 on the CPU).
 """
 
 from __future__ import annotations
@@ -34,6 +34,14 @@ class Trajectory(NamedTuple):
     cam_t: np.ndarray  # (T, 3)
     cam_q: np.ndarray  # (T, 4) wxyz camera-to-world
     times: np.ndarray  # (T,) seconds
+
+
+class PoseObservations(NamedTuple):
+    """Pose-level observations per frame, slot-indexed with mask."""
+
+    t_cl: np.ndarray  # (T, C, 3)
+    q_cl: np.ndarray  # (T, C, 4)
+    mask: np.ndarray  # (T, C) bool
 
 
 def _quat_rotate(q, v):
@@ -114,6 +122,61 @@ def make_orbit_trajectory(num_frames: int = 300, fps: float = 30.0,
             [pitch, np.zeros_like(pitch), np.zeros_like(pitch)], axis=-1)),
     )
     return Trajectory(pos, q, t)
+
+
+def make_raster_trajectory(num_frames: int = 600, fps: float = 30.0,
+                           extent_x: float = 9.0, extent_y: float = 4.5,
+                           rows: int = 3) -> Trajectory:
+    """Serpentine sweep across a wide wall, looking toward +z: `rows`
+    back-and-forth passes while the height advances continuously."""
+    t = np.arange(num_frames) / fps
+    u = np.linspace(0.0, rows, num_frames)
+    x = -extent_x * np.cos(np.pi * u)
+    y = extent_y * (2.0 * u / max(rows, 1) - 1.0)
+    z = 0.05 * np.sin(2.0 * np.pi * u)
+    pos = np.stack([x, y, z], axis=-1)
+    yaw = 0.08 * np.sin(np.pi * u)
+    q = _quat_from_rotvec(np.stack(
+        [np.zeros_like(yaw), yaw, np.zeros_like(yaw)], axis=-1))
+    return Trajectory(pos, q, t)
+
+
+def observe_poses(scene: Scene, traj: Trajectory, capacity: int,
+                  noise_t: float = 0.0, noise_r: float = 0.0,
+                  fov_limit: float = 0.45, max_range: float = 8.0,
+                  seed: int = 2) -> PoseObservations:
+    """Marker poses in the camera frame per frame. Visible: in front of
+    the camera, inside the normalized cone |x/z|, |y/z| < fov_limit,
+    within range, and facing the camera."""
+    rng = np.random.default_rng(seed)
+    tn, c = len(traj.times), capacity
+    m = len(scene.marker_pos)
+    if m > c:
+        raise ValueError(f"capacity {c} cannot hold the scene's {m} markers")
+    t_cl = np.zeros((tn, c, 3))
+    q_cl = np.zeros((tn, c, 4))
+    q_cl[..., 0] = 1.0
+    mask = np.zeros((tn, c), dtype=bool)
+    for i in range(tn):
+        cq, ct = traj.cam_q[i], traj.cam_t[i]
+        cq_inv = _quat_conj(cq)
+        rel_t = _quat_rotate(cq_inv[None], scene.marker_pos - ct)
+        rel_q = _quat_mul(cq_inv[None], scene.marker_quat)
+        z = rel_t[:, 2]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            visible = ((z > 0.2)
+                       & (np.abs(rel_t[:, 0] / z) < fov_limit)
+                       & (np.abs(rel_t[:, 1] / z) < fov_limit)
+                       & (np.linalg.norm(rel_t, axis=-1) < max_range))
+        mz = _quat_rotate(rel_q, np.broadcast_to([0.0, 0.0, 1.0], (m, 3)))
+        visible &= np.einsum("md,md->m", mz, rel_t) < 0
+        nt = rel_t + rng.normal(scale=noise_t, size=(m, 3))
+        nq = _quat_mul(
+            _quat_from_rotvec(rng.normal(scale=noise_r, size=(m, 3))), rel_q)
+        t_cl[i, :m][visible] = nt[visible]
+        q_cl[i, :m][visible] = nq[visible]
+        mask[i, :m] = visible
+    return PoseObservations(t_cl, q_cl, mask)
 
 
 def observe_corners(scene: Scene, traj: Trajectory,

@@ -13,7 +13,8 @@ _EPS = 1e-12
 
 
 def identity(dtype=torch.float32, device=None) -> torch.Tensor:
-    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+    """[1, 0, 0, 0], made on the device (no host-to-device copy)."""
+    return torch.eye(1, 4, dtype=dtype, device=device)[0]
 
 
 def normalize(q: torch.Tensor) -> torch.Tensor:
@@ -23,8 +24,9 @@ def normalize(q: torch.Tensor) -> torch.Tensor:
 
 
 def conjugate(q: torch.Tensor) -> torch.Tensor:
-    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
-                            device=q.device)
+    """[w, -x, -y, -z] (no host-to-device copy: a solve that reads
+    nothing back can use it under torch.cuda.set_sync_debug_mode)."""
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -48,6 +48,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from aruco_slam_tpu_torch.core import lie
 from aruco_slam_tpu_torch.core import quaternion as quat
 from aruco_slam_tpu_torch.filters import cuda_mekf
 
@@ -259,15 +260,6 @@ def _matmul(mode: str, device: torch.device):
     return tf32
 
 
-def _skew(v: torch.Tensor) -> torch.Tensor:
-    """[v]ₓ for (..., 3) -> (..., 3, 3)."""
-    x, y, z = v.unbind(-1)
-    o = torch.zeros_like(x)
-    return torch.stack([torch.stack([o, -z, y], -1),
-                        torch.stack([z, o, -x], -1),
-                        torch.stack([-y, x, o], -1)], -2)
-
-
 def _perturb(q: torch.Tensor, dth: torch.Tensor) -> torch.Tensor:
     """Left-multiplicative rotation-vector perturbation dq(δθ) ⊗ q."""
     dq = torch.cat([torch.ones_like(dth[..., :1]), 0.5 * dth], dim=-1)
@@ -284,7 +276,7 @@ def _point_jacobians(cam_t, cam_q, lm, ce: int):
     rt = rot.transpose(-1, -2)[..., None, :, :].expand(*lead, 3, 3)
     j_cam = torch.zeros((*lead, 3, ce), dtype=lm.dtype, device=lm.device)
     j_cam[..., _DT] = -rt
-    j_cam[..., _DTH] = rt @ _skew(rel)
+    j_cam[..., _DTH] = rt @ lie.skew(rel)
     return h, j_cam, rt
 
 
@@ -322,7 +314,7 @@ def _init_jacobians(cam_q, t_cl, ce: int, with_rotations: bool = False):
     eye3 = torch.eye(3, dtype=dt, device=dev)
     j_cam = torch.zeros((*lead, le, ce), dtype=dt, device=dev)
     j_cam[..., :3, _DT] = eye3
-    j_cam[..., :3, _DTH] = -_skew(t_cl @ rot.transpose(-1, -2))
+    j_cam[..., :3, _DTH] = -lie.skew(t_cl @ rot.transpose(-1, -2))
     if not with_rotations:
         return j_cam, rot_c
     j_cam[..., 3:, _DTH] = eye3

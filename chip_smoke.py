@@ -80,6 +80,23 @@ non-zero, and no result line is printed):
                 for a video decoder, through `io.PrefetchingFrameSource`
                 into the front end: the same observations as fed
                 directly, and the main run's.
+13. factorgraph — `run_slam.main(... --filter factorgraph)` on the main
+                frames, cold (ATE, exactly 3 B1 and 1 B2 launches and no
+                B3) and warm (frames/s, front end and graph seconds).
+14. factorgraph online — bench/factorgraph.py's run at full size (300
+                frames, 12 markers, pose budget 128, window 8, 3
+                iterations): the marginalizations, exactly after frames
+                125, 189 and 253; ATE under 0.1 m; warm frames/s; the
+                device-busy share and device events a frame of 64 frames
+                under torch.profiler; the card against the CPU at float64
+                over 140 frames (trajectory and landmarks within 1e-6 m).
+15. offline    — `run_offline.main` on the main frames (3 B1, 1 B2, no
+                B3; ATE; the map), then the large-map batch solve: 512
+                markers, a 512-frame raster, corners with 0.3 px noise,
+                `--iters 40` (514 poses, H_pp 3084 x 3084): ingest and
+                solve seconds, the final cost (finite, no higher than the
+                ingested state's), ATE, peak device memory, and the
+                solve's device-busy share under torch.profiler.
 
 The line before the last is {"kernels": [...]} (each with its launches
 on the main path, or on its own path for B4 and B5, and its launches
@@ -121,6 +138,20 @@ FLEET_TOL = 1e-4      # m, a fleet stream against its single-stream run
                       # (tests/test_io_apps.py's bound for the JAX fleet)
 FLEET_COHORTS = 4     # the fleet streaming path's rescue cohorts (G > 0)
 MAX_OBS = "16"        # shared --max-obs of the fleet and its references
+# the online factor graph: bench/factorgraph.py's defaults (a 300-frame
+# orbit, 12 markers, run_slam's 128-pose budget); the card against the
+# CPU at f64 over the first GRAPH_CHECK_FRAMES (one marginalization)
+ONLINE_FRAMES = 300
+POSE_BUDGET = 128
+ONLINE_ATE_BOUND = 0.1  # m, the bound of tests/test_graph.py:338
+GRAPH_CHECK_FRAMES = 140
+GRAPH_TOL = 1e-6      # m, the card's f64 trajectory against the CPU's
+PROFILE_FRAMES = 64   # the online frames traced for the device-busy share
+# the large-map batch solve (BASELINE config 3 at the scale of
+# aruco_slam_tpu/bench/large_map.py): markers, raster frames, LM iterations
+LARGE_MARKERS = 512
+LARGE_FRAMES = 512
+LARGE_ITERS = 40
 # the detector's subpixel schedule, the tracker's three pulls and
 # detect.refine_corners' default
 DETECTOR_SCHED = ((6, 6), (3, 4))
@@ -205,6 +236,31 @@ def bound(ops: float, nbytes: float, peak: float):
     against the operations at ``peak``."""
     t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_RATE * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def busy_share(fn):
+    """(device-busy share, wall seconds, device events) of one fn() under
+    torch.profiler: the summed time of the traced device events
+    (kernels, copies, fills) over the wall time (the profiler's own cost
+    stays in the wall, so the share is a lower bound), and their number;
+    the share None where the trace holds no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # the device events alone: a CPU op's self device time is that of
+    # the kernels it launched, which appear again as device events
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in events)
+    launches = sum(e.count for e in events)
+    return (device_us * 1e-6 / wall if device_us else None), wall, launches
 
 
 def _fmt(split: dict) -> str:
@@ -795,7 +851,8 @@ def _run_slam(argv, gt_t, tag: str):
     return res
 
 
-def _warm(argv, frames: int, tag: str, smi: str) -> float:
+def _warm(argv, frames: int, tag: str, smi: str,
+          stage: str = "filter") -> float:
     import torch
     from aruco_slam_tpu_torch.apps import run_slam
     torch.cuda.synchronize()
@@ -806,7 +863,7 @@ def _warm(argv, frames: int, tag: str, smi: str) -> float:
     fps = frames / dt
     log(f"[{tag}] warm run: {frames} frames {SIZE[0]}x{SIZE[1]} in "
         f"{dt:.3f} s = {fps:.2f} frames/s end to end (front end "
-        f"{warm.seconds['front_end']:.3f} s, filter "
+        f"{warm.seconds['front_end']:.3f} s, {stage} "
         f"{warm.seconds['filter']:.3f} s) on {smi}")
     return fps
 
@@ -1275,6 +1332,212 @@ def phase_prefetch(npz: Path, main_res, dev):
                              "observations")
 
 
+def phase_factorgraph(argv, gt_t, main_fps: float, smi: str):
+    """run_slam --filter factorgraph on the main path's frames (34 poses,
+    no marginalization, Huber and depth whitening on): output files,
+    ATE, exactly 3 B1 and 1 B2 launches in the chunk and no B3; warm
+    frames/s with seconds split into front end and graph."""
+    argv = [*argv, "--filter", "factorgraph"]
+    _reset_counts()
+    _run_slam(argv, gt_t, "factorgraph")
+    launches = _counts()
+    log(f"[factorgraph] launches in the run: {launches}")
+    got = [launches[k] for k in ("flood_scan_labels", "refine_corners",
+                                 "fused_update")]
+    if got != [3, 1, 0]:
+        raise AssertionError(f"factorgraph: B1/B2/B3 launches {got}, "
+                             "expected [3, 1, 0] in one chunk")
+    fps = _warm(argv, len(gt_t), "factorgraph", smi, stage="graph")
+    log(f"[factorgraph] warm {fps:.2f} frames/s vs {main_fps:.2f} frames/s "
+        "for the main path (MEKF), same call")
+    return launches
+
+
+def phase_factorgraph_online(dev, smi: str) -> dict:
+    """bench/factorgraph.py's run at full size through
+    `run_slam.run_factorgraph`: a 300-frame orbit at the 128-pose budget,
+    window 8, 3 iterations. Cold: the marginalizations, made exactly
+    after frames 125, 189 and 253 (counted by the frame they follow),
+    and ATE under ONLINE_ATE_BOUND; warm: frames/s. Then the card
+    against the CPU at float64 over the first GRAPH_CHECK_FRAMES frames
+    (which cross one marginalization): trajectories within GRAPH_TOL."""
+    import numpy as np
+    import torch
+    from aruco_slam_tpu_torch.apps import run_slam
+    from aruco_slam_tpu_torch.bench import factorgraph as fg_bench
+    from aruco_slam_tpu_torch.bench.ate import ate_rmse
+    from aruco_slam_tpu_torch.config import SlamAppConfig
+    traj, obs, cam = fg_bench.inputs(ONLINE_FRAMES, 12)
+    cfg = SlamAppConfig(input="", filter="factorgraph", window=8,
+                        pose_budget=POSE_BUDGET)
+
+    def run_all(n, device, dtype=torch.float32):
+        return run_slam.run_factorgraph(
+            cfg, traj.times[:n], obs.t_cl[:n], obs.q_cl[:n], obs.mask[:n],
+            cam, device, dtype=dtype)
+
+    def run(n, device):
+        return run_all(n, device)[0]
+
+    added, marginalized = [0], []
+    real_add, real_marg = run_slam.add_frame, run_slam.marginalize_poses
+
+    def add(*a, **k):
+        added[0] += 1
+        return real_add(*a, **k)
+
+    def marginalize(*a, **k):
+        marginalized.append(added[0] - 1)
+        return real_marg(*a, **k)
+
+    run_slam.add_frame, run_slam.marginalize_poses = add, marginalize
+    try:
+        cold = run(ONLINE_FRAMES, dev)
+    finally:
+        run_slam.add_frame, run_slam.marginalize_poses = real_add, real_marg
+    err = ate_rmse(cold[:, :3], traj.cam_t)
+    want = list(range(POSE_BUDGET - 3, ONLINE_FRAMES, POSE_BUDGET // 2))
+    log(f"[factorgraph-online] {ONLINE_FRAMES} frames, pose budget "
+        f"{POSE_BUDGET}: marginalized after frames {marginalized} (expected "
+        f"{want}); ATE {err:.4f} m (bound {ONLINE_ATE_BOUND})")
+    if marginalized != want or not np.isfinite(cold).all() \
+            or not err < ONLINE_ATE_BOUND:
+        raise AssertionError(f"factorgraph-online: marginalized after "
+                             f"{marginalized}, ATE {err}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(ONLINE_FRAMES, dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    fps = ONLINE_FRAMES / dt
+    log(f"[factorgraph-online] warm run: {ONLINE_FRAMES} frames in {dt:.3f} "
+        f"s = {fps:.2f} frames/s on {smi}")
+    busy, wall, events = busy_share(lambda: run(PROFILE_FRAMES, dev))
+    log(f"[factorgraph-online] device busy {busy} of the wall over the "
+        f"first {PROFILE_FRAMES} frames under torch.profiler ({wall:.3f} s); "
+        f"{events} device events, {events / PROFILE_FRAMES:.1f} a frame")
+    n = GRAPH_CHECK_FRAMES
+    t0 = time.perf_counter()
+    card = run_all(n, dev, torch.float64)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = run_all(n, torch.device("cpu"), torch.float64)
+    t_host = time.perf_counter() - t0
+    # the trajectory as run_slam writes it (float32, as the JAX run_slam)
+    # and the landmarks at the solve's float64
+    traj_diff = float(np.abs(card[0] - host[0]).max())
+    lm_diff = float(np.abs(card[2] - host[2]).max())
+    diff = max(traj_diff, lm_diff)
+    log(f"[factorgraph-online] f64, first {n} frames: max |card - CPU| "
+        f"{traj_diff:.3e} m on the float32 trajectory, {lm_diff:.3e} m on "
+        f"the float64 landmarks (tol {GRAPH_TOL}); {t_card:.3f} s on the "
+        f"card, {t_host:.3f} s on the CPU")
+    if not diff <= GRAPH_TOL:
+        raise AssertionError(f"factorgraph-online: the card's f64 "
+                             f"trajectory is {diff} m from the CPU's")
+    return {"fps": fps, "ate_m": err, "marginalized_after": marginalized,
+            "card_vs_cpu_m": diff, "busy": busy}
+
+
+def phase_offline(npz: Path, tmp: Path, smi: str):
+    """run_offline on the main npz (3 B1, 1 B2 and no B3 launches; ATE
+    under ATE_BOUND; the map written), then the large-map batch solve:
+    LARGE_MARKERS markers (extent 11, depth 4.5, seed 0) surveyed by a
+    LARGE_FRAMES-frame 4-row raster, corners with 0.3 px noise (seed 1)
+    saved as a corners npz, `run_offline --iters LARGE_ITERS`: ingest
+    and solve seconds, the final cost (finite, no higher than the
+    ingested state's), ATE and peak device memory."""
+    import numpy as np
+    import torch
+    from aruco_slam_tpu_torch.apps import run_offline
+    from aruco_slam_tpu_torch.bench import synthetic
+    from aruco_slam_tpu_torch.core import camera as cam_mod
+    from aruco_slam_tpu_torch.graph import ba
+    from aruco_slam_tpu_torch.io import load_map, save_npz
+    _reset_counts()
+    res = run_offline.main(["--input", str(npz), "--platform", PLATFORM,
+                            "--trajectory", str(tmp / "offline.txt"),
+                            "--map", str(tmp / "offline_map.txt")])
+    launches = _counts()
+    got = [launches[k] for k in ("flood_scan_labels", "refine_corners",
+                                 "fused_update")]
+    ids = load_map(res.map_file)[0]
+    log(f"[offline] launches in the run: {launches}; ATE {res.ate:.4f} m "
+        f"(bound {ATE_BOUND}); {len(ids)} landmarks; final cost "
+        f"{res.cost:.3f}; seconds {res.seconds}")
+    if got != [3, 1, 0] or not res.ate < ATE_BOUND or not len(ids) \
+            or not np.isfinite(res.cam_traj).all():
+        raise AssertionError(f"offline: B1/B2/B3 launches {got} (expected "
+                             f"[3, 1, 0]), ATE {res.ate}, {len(ids)} "
+                             "landmarks")
+
+    # the large map
+    t0 = time.perf_counter()
+    k = np.array([[1414.9, 0.0, 967.0], [0.0, 1414.9, 544.3],
+                  [0.0, 0.0, 1.0]])
+    d = np.array([0.0614, -0.2951, 0.0005, 0.0029, 0.4387])
+    extent = 11.0 * np.sqrt(LARGE_MARKERS / 512.0)
+    scene = synthetic.make_wall_scene(num_markers=LARGE_MARKERS, seed=0,
+                                      extent=float(extent), depth=4.5)
+    traj = synthetic.make_raster_trajectory(
+        num_frames=LARGE_FRAMES, rows=4, extent_x=float(extent - 2.0),
+        extent_y=float(0.4 * extent))
+    corners, cmask = synthetic.observe_corners(
+        scene, traj, cam_mod.CameraModel.from_matrix(k, d), LARGE_MARKERS,
+        noise_px=0.3, seed=1)
+    large = tmp / "large_map.npz"
+    save_npz(large, times=traj.times, corners=corners, corner_mask=cmask,
+             gt_cam_t=traj.cam_t, camera_matrix=k, dist_coeffs=d,
+             marker_size=np.float64(scene.marker_size))
+    log(f"[offline] large map: {LARGE_MARKERS} markers, {LARGE_FRAMES} "
+        f"raster frames, {cmask.sum(1).mean():.1f} visible a frame on "
+        f"average; made in {time.perf_counter() - t0:.1f} s")
+    ingested = []
+    real = run_offline.batch_optimize
+
+    def recording(cfg, state, iters):
+        ingested.append((float(ba._cost_only(cfg, state)), cfg, state))
+        return real(cfg, state, iters=iters)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run_offline.batch_optimize = recording
+    t0 = time.perf_counter()
+    try:
+        big = run_offline.main(["--input", str(large), "--platform", PLATFORM,
+                                "--iters", str(LARGE_ITERS),
+                                "--trajectory", str(tmp / "large.txt"),
+                                "--map", str(tmp / "large_map.txt")])
+    finally:
+        run_offline.batch_optimize = real
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    cost0, gcfg, state = ingested[0]
+    # the solve again from the same ingested state, under the profiler
+    busy, busy_wall, events = busy_share(lambda: ba.batch_optimize(
+        gcfg, state, iters=LARGE_ITERS))
+    t = LARGE_FRAMES + 2
+    out = {"poses": t, "h_pp": 6 * t, "markers": LARGE_MARKERS,
+           "landmarks": len(big.landmark_ids), "iters": LARGE_ITERS,
+           **{f"{k}_s": v for k, v in big.seconds.items()}, "wall_s": wall,
+           "ingest_cost": cost0, "final_cost": big.cost, "ate_m": big.ate,
+           "peak_bytes": peak, "solve_busy": busy}
+    log(f"[offline] large map: {t} poses (H_pp {6 * t} x {6 * t}), "
+        f"{out['landmarks']} landmarks; front end {out['front_end_s']:.3f} "
+        f"s, ingest {out['ingest_s']:.3f} s, {LARGE_ITERS}-iteration solve "
+        f"{out['solve_s']:.3f} s ({wall:.3f} s wall); cost {cost0:.3f} "
+        f"ingested -> {big.cost:.3f}; ATE {big.ate:.4f} m; peak device "
+        f"memory {peak / 2**30:.2f} GiB; solve device busy {busy} under "
+        f"torch.profiler ({busy_wall:.3f} s, {events / LARGE_ITERS:.1f} "
+        f"device events an iteration) on {smi}")
+    if not np.isfinite(big.cost) or big.cost > cost0 \
+            or not big.ate < ATE_BOUND:
+        raise AssertionError(f"offline large map: cost {cost0} -> "
+                             f"{big.cost}, ATE {big.ate}")
+    return launches, out
+
+
 def main() -> int:
     import torch
     name, smi = phase_device()
@@ -1362,6 +1625,10 @@ def main() -> int:
             Path(tmp), fleet_paths, CHUNK, main_fps, smi)
         paths.update(phase_fleet_streaming(Path(tmp), fleet_paths, seqs,
                                            full_warm, smi))
+        paths["factorgraph"] = phase_factorgraph(argv, traj.cam_t, main_fps,
+                                                 smi)
+        phase_factorgraph_online(dev, smi)
+        paths["offline"], _ = phase_offline(npz, Path(tmp), smi)
     # launches: the main path's, or for B4 and B5 (which the main path
     # does not run) their own path's
     own = {"flood_labels": "stencil-only", "refine_offsets": "refine_corners"}

@@ -17,11 +17,13 @@ import torch
 from aruco_slam_tpu.bench import render as jrender
 from aruco_slam_tpu.bench import synthetic as jsyn
 from aruco_slam_tpu.core import camera as jcam
+from aruco_slam_tpu.core import lie as jlie
 from aruco_slam_tpu.core import quaternion as jquat
 from aruco_slam_tpu.ops import pnp as jpnp
 from aruco_slam_tpu_torch.bench import render as trender
 from aruco_slam_tpu_torch.bench import synthetic as tsyn
 from aruco_slam_tpu_torch.core import camera as tcam
+from aruco_slam_tpu_torch.core import lie as tlie
 from aruco_slam_tpu_torch.core import quaternion as tquat
 from aruco_slam_tpu_torch.ops import pnp as tpnp
 
@@ -64,6 +66,23 @@ def test_quaternion_unary(fn):
     want = np.asarray(getattr(jquat, fn)(jq))
     got = getattr(tquat, fn)(tq).numpy()
     np.testing.assert_allclose(got, want, atol=4 * ATOL_UNIT)
+
+
+def test_lie_matches_jax():
+    """skew and the inverse right Jacobian (f64, 1e-12 absolute): random
+    rotation vectors, angles near zero (both sides of each package's
+    Taylor switch) and near pi."""
+    rng = np.random.default_rng(4)
+    axes = rng.normal(size=(6, 3))
+    axes /= np.linalg.norm(axes, axis=-1, keepdims=True)
+    angles = np.array([0.0, 1e-7, 2e-4, 1e-3 * 1.01, 1.0, np.pi - 1e-4])
+    w = np.concatenate([rng.normal(0, 1.0, (64, 3)),
+                        axes * angles[:, None]])
+    np.testing.assert_array_equal(tlie.skew(torch.tensor(w)).numpy(),
+                                  np.asarray(jlie.skew(jnp.asarray(w))))
+    np.testing.assert_allclose(
+        tlie.so3_right_jacobian_inv(torch.tensor(w)).numpy(),
+        np.asarray(jlie.so3_right_jacobian_inv(jnp.asarray(w))), atol=1e-12)
 
 
 def test_quaternion_binary_and_rotvec():

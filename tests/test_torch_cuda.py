@@ -603,3 +603,99 @@ def test_cohort_batching_bit_identical_on_card(device, cohorts):
     want = _fleet_scan(seq, device, per_cohort)
     for g, w in zip((*got[0][:-1], *got[1:]), (*want[0][:-1], *want[1:])):
         assert torch.equal(g, w)
+
+
+def _graph_orbit(frames: int, max_poses: int, rotations: bool = False):
+    """A pose-level orbit (8 markers, capacity 16, 5 mm noise) and an f64
+    GraphConfig at the run_slam defaults (Huber 2, depth whitening)."""
+    from aruco_slam_tpu_torch.bench import synthetic
+    from aruco_slam_tpu_torch.graph import GraphConfig
+    scene = synthetic.make_wall_scene(num_markers=8, seed=0)
+    traj = synthetic.make_orbit_trajectory(num_frames=frames)
+    obs = synthetic.observe_poses(scene, traj, 16, noise_t=0.005,
+                                  noise_r=0.02, fov_limit=0.75)
+    cfg = GraphConfig(max_poses=max_poses, max_landmarks=16,
+                      max_factors=max_poses * 10, meas_sigma_t=0.01,
+                      odom_sigma_t=1.0, odom_sigma_rot=1.0, pixel_sigma=1.0,
+                      huber_delta=2.0, with_rotations=rotations,
+                      dtype=torch.float64)
+    return obs, cfg
+
+
+def _graph_ingest(cfg, obs, dev, frames: int, rotations: bool = False):
+    from aruco_slam_tpu_torch import graph
+    state = graph.init_graph(cfg, device=dev)
+    for i in range(frames):
+        state = graph.add_frame(
+            cfg, state, torch.tensor(obs.t_cl[i], device=dev),
+            torch.tensor(obs.mask[i], device=dev),
+            torch.tensor(obs.q_cl[i], device=dev) if rotations else None)
+    return state
+
+
+@pytest.mark.parametrize("rotations", [False, True],
+                         ids=["point", "rotations"])
+def test_graph_batch_optimize_cuda_matches_cpu(device, rotations):
+    """batch_optimize (15 iterations, f64) on the card: poses and
+    landmarks within 1e-6 m of the CPU's, the cost within 1e-9."""
+    from aruco_slam_tpu_torch import graph
+    obs, cfg = _graph_orbit(40, 42, rotations)
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        state, cost = graph.batch_optimize(
+            cfg, _graph_ingest(cfg, obs, dev, 40, rotations), iters=15)
+        out[dev.type] = (state.pose_t.cpu(), state.lm.cpu(), float(cost))
+    (pt, lm, cost), (pt_c, lm_c, cost_c) = out["cuda"], out["cpu"]
+    assert float((pt - pt_c).abs().max()) < 1e-6
+    assert float((lm - lm_c).abs().max()) < 1e-6
+    assert abs(cost - cost_c) <= 1e-9 * cost_c
+
+
+def test_graph_online_marginalizing_cuda_matches_cpu(device):
+    """The bounded online run (60 frames, 24-pose budget, window 8, 3
+    iterations, four marginalizations; f64) on the card: every frame's
+    pose within 1e-6 m of the CPU's, the priors within 1e-8 relative."""
+    from aruco_slam_tpu_torch import graph
+    obs, cfg = _graph_orbit(60, 24)
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        state = graph.init_graph(cfg, device=dev)
+        est, num = [], 1
+        for i in range(60):
+            state = graph.add_frame(cfg, state,
+                                    torch.tensor(obs.t_cl[i], device=dev),
+                                    torch.tensor(obs.mask[i], device=dev))
+            state, _ = graph.optimize_window(cfg, state, window=8, iters=3)
+            num = min(num + 1, 24)
+            est.append(state.pose_t[num - 2])
+            if num >= 23:
+                state = graph.marginalize_poses(cfg, state, 12)
+                num = max(num - 12, 1)
+        out[dev.type] = (torch.stack(est).cpu(), state.prior_lm_h.cpu(),
+                         state.prior_lm_mean.cpu())
+    (est, h, m), (est_c, h_c, m_c) = out["cuda"], out["cpu"]
+    assert float((est - est_c).abs().max()) < 1e-6
+    assert float((h - h_c).abs().max() / h_c.abs().max()) < 1e-8
+    assert float((m - m_c).abs().max() / m_c.abs().max()) < 1e-8
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_graph_solves_read_nothing_back(device, dtype):
+    """add_frame, optimize_window and batch_optimize under
+    torch.cuda.set_sync_debug_mode("error"): the LM loop chooses accept
+    or reject on the device and never waits for it."""
+    from aruco_slam_tpu_torch import graph
+    obs, cfg = _graph_orbit(20, 22)
+    cfg = cfg._replace(dtype=dtype)
+    state = _graph_ingest(cfg, obs, device, 19)
+    t_cl = torch.tensor(obs.t_cl[19], device=device)
+    mask = torch.tensor(obs.mask[19], device=device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = graph.add_frame(cfg, state, t_cl, mask)
+        state, _ = graph.optimize_window(cfg, state, window=8, iters=3)
+        state, cost = graph.batch_optimize(cfg, state, iters=5)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(cost)) and int(state.num_poses) == 21

@@ -7,7 +7,8 @@ landmarks (``--filter mekf_rotations``), a preloaded map
 (``--load-map``) and slot recycling (``--slot-max-age``); the JAX
 run_slam's flags, the fleet's viewer note and video through the decode
 ring; plus the port's import hygiene (no jax) and its refusal to run
-"cuda" without a card.
+"cuda" without a card. The factor-graph backend's parity is
+tests/test_torch_offline.py's.
 """
 
 import os
@@ -147,7 +148,7 @@ def test_track_every_refusals(video_rate, flags, error):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--filter", "factorgraph"], ["--viz-2d"],
+    ["--resume", "ck.npz"], ["--viz-2d"],
     ["--checkpoint-every", "4"]])
 def test_unported_paths_refuse(sequence, flags):
     with pytest.raises(NotImplementedError, match="not ported yet"):
