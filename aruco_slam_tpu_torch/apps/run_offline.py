@@ -1,7 +1,7 @@
 """Offline two-pass SLAM on PyTorch/CUDA (batch smoothing).
 
-Counterpart of aruco_slam_tpu/apps/run_offline.py on one device: pass 1
-ingests every frame into the factor graph with a cheap windowed solve
+Counterpart of aruco_slam_tpu/apps/run_offline.py: pass 1 ingests every
+frame into the factor graph with a cheap windowed solve
 (`graph.add_frame` + `optimize_window`, the warm start), then a
 full-batch LM solve (`graph.batch_optimize`) smooths the whole
 trajectory, and the smoothed poses and map are written in the JAX
@@ -11,21 +11,47 @@ columns).
     python -m aruco_slam_tpu_torch.apps.run_offline --input seq.npz \
         [--platform cuda|cpu] [--iters 50] [--ba-rotations] [--f64]
 
+Distributed modes (parallel/dist.py, parallel/sharded_ba.py):
+
+    # N OS processes on one machine joined over torch.distributed; the
+    # solve runs landmark-sharded over processes x local devices, and
+    # image input's candidate pipeline is sharded over the processes
+    python -m aruco_slam_tpu_torch.apps.run_offline --input seq.npz \
+        --processes 2 --local-devices 2 --platform cpu
+
+    # one process of a run started elsewhere (SLAM_COORDINATOR,
+    # SLAM_NUM_PROCESSES, SLAM_PROCESS_ID)
+    python -m aruco_slam_tpu_torch.apps.run_offline --input seq.npz \
+        --distributed
+
+    # a fleet of sequences on a (data, kf) mesh: each sequence's
+    # landmarks shard over kf, the sequences split over data; a
+    # process batches its sequences on its device
+    python -m aruco_slam_tpu_torch.apps.run_offline \
+        --input a.npz,b.npz,c.npz,d.npz --fleet 1x1
+
+NCCL joins processes that have a card each; Gloo joins CPU processes and
+processes that share a card (`dist.choose_backend`). Only process 0
+writes outputs.
+
 npz input may carry `images`, `corners` or pose-level `t_cl` bundles;
 video input (with ``--calib``) goes through run_slam's decode ring and
 front end; recycled slots (``--slot-max-age``) are epoch-split into
 fresh landmark columns. ``--platform cuda`` is the default and raises
 when no card is present. Every flag of the JAX run_offline parses, with
-its usage errors; the distributed solve (``--distributed``,
-``--processes``, ``--fleet``), checkpoints, ``--profile`` and the
-viewers are refused with a "not ported yet" error.
+its usage errors; checkpoints, ``--profile`` and the viewers are refused
+with a "not ported yet" error.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
+import subprocess
+import sys
 import time
+from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
@@ -39,9 +65,13 @@ from aruco_slam_tpu_torch.bench import ate
 from aruco_slam_tpu_torch.config import SlamAppConfig
 from aruco_slam_tpu_torch.graph import (
     GraphConfig, GraphState, add_frame, batch_optimize, init_graph,
-    landmark_covariances, optimize_window)
+    landmark_covariances, optimize_window, state_from_numpy,
+    state_to_numpy)
 from aruco_slam_tpu_torch.io import (
     NpzSource, TrajectoryWriter, is_video, save_map)
+from aruco_slam_tpu_torch.parallel import dist as pdist
+from aruco_slam_tpu_torch.parallel.sharded_ba import (
+    sharded_batch_optimize, sharded_fleet_optimize, stack_graphs)
 
 
 class OfflineResult(NamedTuple):
@@ -53,13 +83,95 @@ class OfflineResult(NamedTuple):
     landmark_ids: np.ndarray  # marker ids in the map file
     ate: float | None         # vs the input's gt_cam_t, when present
     cost: float               # the batch solve's final cost
-    seconds: dict             # front_end, ingest, solve
+    seconds: dict             # front_end, ingest, solve (a fleet's: all)
 
 
 def _not_ported(what: str):
     raise NotImplementedError(f"{what}: not ported yet to the PyTorch/"
                               "CUDA package (aruco_slam_tpu.apps."
                               "run_offline has it)")
+
+
+def _child_command() -> list[str]:
+    """The command a --processes child runs (this module)."""
+    return [sys.executable, "-m", "aruco_slam_tpu_torch.apps.run_offline"]
+
+
+def _wait_all(procs) -> list[int]:
+    """Every child's exit code; the first that fails ends the others (a
+    peer waiting on a dead one would otherwise wait out its timeout)."""
+    while True:
+        rc = [p.poll() for p in procs]
+        if any(r for r in rc if r is not None):
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+            return [p.wait() for p in procs]
+        if all(r is not None for r in rc):
+            return rc
+        time.sleep(0.05)
+
+
+def _spawn(cmd: list[str], n: int, coordinator: str) -> list[int]:
+    """Run ``cmd`` in n OS processes joined as one run: each gets its
+    SLAM_* environment (`dist.initialize` reads it), the repository on
+    PYTHONPATH and its share of the host's cores as OpenMP threads
+    (oversubscribed spinning threads stall small ops). Returns their
+    exit codes; the first that fails ends the others."""
+    root = str(Path(__file__).resolve().parents[2])
+    path = os.environ.get("PYTHONPATH")
+    threads = str(max(1, len(os.sched_getaffinity(0)) // n))
+    procs = []
+    try:
+        for pid in range(n):
+            env = dict(os.environ, SLAM_COORDINATOR=coordinator,
+                       SLAM_NUM_PROCESSES=str(n), SLAM_PROCESS_ID=str(pid),
+                       PYTHONPATH=root + (os.pathsep + path if path else ""))
+            env.setdefault("OMP_NUM_THREADS", threads)
+            procs.append(subprocess.Popen(cmd, env=env))
+        return _wait_all(procs)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _launch_processes(args, argv) -> None:
+    """--processes N: re-run this command in N OS processes joined over
+    torch.distributed (`_spawn`), each with --distributed in place of
+    --processes (the one-process-per-host launch shape on one machine).
+    A child that fails fails the run."""
+    src = list(argv) if argv is not None else sys.argv[1:]
+    child_argv, skip = [], False
+    for a in src:
+        if skip:
+            skip = False
+        elif a == "--processes":
+            skip = True
+        elif not a.startswith("--processes="):
+            child_argv.append(a)
+    if "--distributed" not in child_argv:
+        child_argv.append("--distributed")
+    rc = _spawn(_child_command() + child_argv, args.processes,
+                args.coordinator)
+    if any(rc):
+        raise SystemExit(f"distributed workers failed: exit codes {rc}")
+
+
+def _load_all(cfg: SlamAppConfig, inputs: list[str], calib,
+              device: torch.device):
+    """Every input sequence's (npz source or None, observations)."""
+    seqs = []
+    for path in inputs:
+        c = dataclasses.replace(cfg, input=path)
+        if is_video(path):
+            src, obs = None, load_video_observations(c, calib, device)
+        else:
+            src = NpzSource(path)
+            obs = load_observations(src, c, device)
+        seqs.append((src, _resolve_recycling(obs)))
+    return seqs
 
 
 def _ingest(gcfg: GraphConfig, cfg: SlamAppConfig, t_cl, mask, q_cl,
@@ -156,6 +268,26 @@ def _parser() -> argparse.ArgumentParser:
                         "landmark columns")
     p.add_argument("--f64", action="store_true",
                    help="solve in float64")
+    p.add_argument("--distributed", action="store_true",
+                   help="join a multi-process run (SLAM_COORDINATOR / "
+                        "SLAM_NUM_PROCESSES / SLAM_PROCESS_ID) over "
+                        "torch.distributed: the batch solve runs "
+                        "landmark-sharded over every process's local "
+                        "devices, image input's candidate pipeline over "
+                        "the processes; process 0 writes outputs")
+    p.add_argument("--processes", type=int, default=0, metavar="N",
+                   help="start N OS processes on this machine, each "
+                        "re-running this command with --distributed")
+    p.add_argument("--local-devices", type=int, default=None, metavar="M",
+                   help="mesh devices each process holds, batched on its "
+                        "device (default 1)")
+    p.add_argument("--coordinator", default="127.0.0.1:29791",
+                   help="host:port of process 0 for --processes")
+    p.add_argument("--fleet", default=None, metavar="DATAxKF",
+                   help="solve a fleet of sequences (comma-separated "
+                        "--input) on a DATA x KF mesh: sequences split over "
+                        "DATA, each landmark-sharded over KF; outputs get "
+                        "_seqI suffixes")
     # the JAX run_offline's paths not ported yet: refused in main; the
     # modifiers of refused flags are accepted
     p.add_argument("--viz-2d", action="store_true")
@@ -168,15 +300,97 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-every", type=int, default=0, metavar="N")
     p.add_argument("--checkpoint", default="outputs/checkpoint.npz")
     p.add_argument("--resume", default=None)
-    p.add_argument("--distributed", action="store_true")
-    p.add_argument("--processes", type=int, default=0, metavar="N")
-    p.add_argument("--local-devices", type=int, default=None, metavar="M")
-    p.add_argument("--coordinator", default="127.0.0.1:29791")
-    p.add_argument("--fleet", default=None, metavar="DATAxKF")
     return p
 
 
-def main(argv=None) -> OfflineResult:
+def _solve(gcfg: GraphConfig, state: GraphState, iters: int,
+           distributed: bool, local_devices: int):
+    """Batch LM, landmark-sharded over every process's local devices when
+    the run is distributed over more than one mesh device (JAX: more
+    than one device); otherwise `batch_optimize`."""
+    if distributed and pdist.device_count(local_devices) > 1:
+        mesh = pdist.make_mesh(local_devices=local_devices)
+        return sharded_batch_optimize(gcfg, state, mesh, iters=iters)
+    return batch_optimize(gcfg, state, iters=iters)
+
+
+def _run_fleet(args, cfg: SlamAppConfig, inputs: list[str], is_main: bool,
+               device: torch.device, local_devices: int):
+    """--fleet DATAxKF: solve the sequences as one fleet. Pass 1 goes
+    round-robin over the processes (each ingests its sequences; the graph
+    states are all-gathered on the host), the problems stack at common
+    capacities, and `sharded_fleet_optimize` batches each process's
+    problems. Returns one OfflineResult per sequence on process 0."""
+    n_data, n_kf = (int(v) for v in args.fleet.split("x"))
+    mesh = pdist.make_mesh2d(n_data=n_data, n_kf=n_kf,
+                             local_devices=local_devices)
+    seconds = {}
+    t0 = time.perf_counter()
+    seqs = _load_all(cfg, inputs, args.calib, device)
+    seconds["front_end"] = time.perf_counter() - t0
+    # common capacities so the problems stack into one fleet
+    max_t = max(len(o[0]) for _, o in seqs)
+    max_l = max(o[1].shape[1] for _, o in seqs)
+    max_f = max(int(o[3].sum()) for _, o in seqs) + 8
+    cam0 = seqs[0][1][4]
+    gcfg = graph_config(cfg, max_t + 2, max_l, max_f, cam0,
+                        args.ba_rotations,
+                        torch.float64 if args.f64 else torch.float32)
+    for _, o in seqs[1:]:
+        if abs(float(o[4].fx) - float(cam0.fx)) > 0.01 * float(cam0.fx):
+            print("warning: fleet sequences have different focal "
+                  "lengths; using the first camera's for the "
+                  "pixel-noise scaling")
+            break
+
+    def ingest(o):
+        return _ingest(gcfg, cfg, o[1], o[3], o[2], args.ba_rotations,
+                       device)
+
+    t0 = time.perf_counter()
+    nproc, pid = pdist.process_count(), pdist.process_index()
+    if 1 < nproc <= len(seqs):
+        own = [state_to_numpy(ingest(o)) for i, (_, o) in enumerate(seqs)
+               if i % nproc == pid]
+        own += [own[0]] * (-(-len(seqs) // nproc) - len(own))
+        fields = GraphState._fields
+        g = pdist.all_gather_host([np.stack([s[k] for s in own])
+                                   for k in fields])     # (P, mmax, ...)
+        states = [state_from_numpy(gcfg, {k: a[i % nproc, i // nproc]
+                                          for k, a in zip(fields, g)},
+                                   device)
+                  for i in range(len(seqs))]
+    else:
+        states = [ingest(o) for _, o in seqs]
+    _sync(device)
+    seconds["ingest"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out, costs = sharded_fleet_optimize(gcfg, stack_graphs(states), mesh,
+                                        iters=cfg.batch_iters)
+    costs = costs.cpu().numpy()
+    seconds["solve"] = time.perf_counter() - t0
+    if not is_main:
+        return None
+    print(f"fleet solve: {len(seqs)} sequences on a {n_data}x{n_kf} "
+          f"(data x kf) mesh, {cfg.batch_iters} LM iters in "
+          f"{seconds['solve']:.2f}s (ingest {seconds['ingest']:.2f}s)")
+    results = []
+    for i, (src, o) in enumerate(seqs):
+        times, slot_ids = o[0], o[6]
+        seq = GraphState(*(x[i] for x in out))
+        cam_traj, ids, err = _write_outputs(args, cfg, gcfg, seq, times,
+                                            slot_ids, src, seq_i=i,
+                                            n_seq=len(seqs))
+        results.append(OfflineResult(
+            _seq_path(cfg.trajectory_file, i, len(seqs)),
+            _seq_path(cfg.map_file, i, len(seqs)), cam_traj,
+            np.asarray(ids), err, float(costs[i]), seconds))
+    return results
+
+
+def main(argv=None):
+    """Returns the OfflineResult (one per sequence with --fleet) on process
+    0; None on the others and from the --processes launcher."""
     p = _parser()
     args = p.parse_args(argv)
     # the JAX run_offline's usage errors, in its order
@@ -190,16 +404,20 @@ def main(argv=None) -> OfflineResult:
     if args.fleet and (args.checkpoint_every or args.resume):
         p.error("--fleet does not checkpoint (per-sequence ingest is "
                 "cheap; checkpoint single-sequence runs)")
-    for flag, on in (("--processes", args.processes),
-                     ("--distributed", args.distributed),
-                     ("--fleet", args.fleet),
-                     ("--profile", args.profile),
+    for flag, on in (("--profile", args.profile),
                      ("--checkpoint-every", args.checkpoint_every),
                      ("--resume", args.resume),
                      ("--viz-2d", args.viz_2d), ("--viz-3d", args.viz_3d),
                      ("--export-video", args.export_video)):
         if on:
             _not_ported(flag)
+    if args.processes:
+        return _launch_processes(args, argv)
+    if args.distributed:
+        pdist.initialize(local_devices=args.local_devices,
+                         platform=args.platform)
+    local_devices = args.local_devices or 1
+    is_main = pdist.process_index() == 0
     device = resolve_device(args.platform)
 
     cfg = SlamAppConfig(input=args.input, trajectory_file=args.trajectory,
@@ -212,14 +430,21 @@ def main(argv=None) -> OfflineResult:
                         track_every=args.track_every,
                         detector=args.detector, capacity=args.capacity,
                         slot_max_age=args.slot_max_age)
+    if args.fleet:
+        return _run_fleet(args, cfg, args.input.split(","), is_main, device,
+                          local_devices)
+    # a multi-process run shards image input's candidate pipeline over
+    # the processes; the slot scan and PnP replicate (bit-identical)
+    nproc = pdist.process_count()
+    shard = (pdist.process_index(), nproc) if nproc > 1 else None
     seconds = {}
     t0 = time.perf_counter()
     if is_video(cfg.input):
         src = None
-        obs = load_video_observations(cfg, args.calib, device)
+        obs = load_video_observations(cfg, args.calib, device, shard=shard)
     else:
         src = NpzSource(cfg.input)
-        obs = load_observations(src, cfg, device)
+        obs = load_observations(src, cfg, device, shard=shard)
     times, t_cl, q_cl, mask, cam, _amb, slot_ids = _resolve_recycling(obs)
     _sync(device)
     seconds["front_end"] = time.perf_counter() - t0
@@ -233,12 +458,17 @@ def main(argv=None) -> OfflineResult:
     _sync(device)
     seconds["ingest"] = time.perf_counter() - t0
     t1 = time.perf_counter()
-    state, cost = batch_optimize(gcfg, state, iters=cfg.batch_iters)
+    state, cost = _solve(gcfg, state, cfg.batch_iters, args.distributed,
+                         local_devices)
     cost = float(cost)
     seconds["solve"] = time.perf_counter() - t1
     dt = time.perf_counter() - t0
+    if not is_main:
+        return None
+    where = f"{pdist.device_count(local_devices)} devices x {nproc} " \
+        "processes" if args.distributed else "1 device"
     print(f"batch solve: {t} poses, {int(state.f_count)} factors, "
-          f"{cfg.batch_iters} LM iters on 1 device in {dt:.2f}s (final "
+          f"{cfg.batch_iters} LM iters on {where} in {dt:.2f}s (final "
           f"cost {cost:.3f})")
     print(f"ingest {seconds['ingest']:.3f}s, solve {seconds['solve']:.3f}s "
           f"({device})")

@@ -61,6 +61,7 @@ from aruco_slam_tpu_torch.io import (
     NpzSource, PrefetchingFrameSource, TrajectoryWriter, is_video, load_map,
     save_map, video_frames)
 from aruco_slam_tpu_torch.ops import detect, pnp
+from aruco_slam_tpu_torch.parallel import dist as pdist
 from aruco_slam_tpu_torch.parallel.multi_slam import (
     batched_mekf_scan, stack_states)
 
@@ -152,11 +153,8 @@ def _observations_from_frames(frame_iter, cam, cfg: SlamAppConfig,
                 detect.detect_markers_batch_lru(ims, dcfg, table, seen,
                                                 fidx)
         fidx += n
-        res = pnp.solve_square_pnp(cam, det_c, cfg.marker_size)
-        mask = det_m & (res.err < cfg.max_reproj_px)
-        amb = res.err / torch.clamp(res.err2, min=1e-9)
-        outs.append((res.t_cl, res.q_cl, mask, amb, reset, ids_f, dropped,
-                     n))
+        outs.append(_pnp_chunk(cam, cfg, det_c, det_m, reset, ids_f,
+                               dropped, n))
         buf.clear()
 
     for ts, gray in frame_iter:
@@ -167,10 +165,107 @@ def _observations_from_frames(frame_iter, cam, cfg: SlamAppConfig,
     flush()
     if not times:
         raise ValueError("no decodable frames")
+    return _loader_tuple(times, outs, cam, table, cfg, dcfg)
+
+
+def _observations_from_frames_sharded(frame_iter, cam, cfg: SlamAppConfig,
+                                      device: torch.device, pid: int,
+                                      nproc: int, chunk: int = 32,
+                                      total: int | None = None):
+    """Distributed image front end (run_offline --distributed), the JAX
+    run_slam's: chunk c's candidate pipeline (threshold, labeling,
+    harvest, subpixel, decode: B1 and B2) runs only on process c % nproc;
+    the candidate arrays are all-gathered on the host (the chunk count
+    padded to a multiple of the processes, the chunks put back in order)
+    and every process replicates the sequential id->slot scan and the
+    batched PnP, in the single-process front end's chunks and shapes, so
+    the observations are bit-identical to `_observations_from_frames`.
+    With ``total`` frames known, the chunk shrinks so that every process
+    owns one; a process that still owns none raises."""
+    if cfg.track_every:
+        raise ValueError("--distributed ingest shards full detection; "
+                         "tracked streaming (--track-every) is "
+                         "sequential — drop one of the two flags")
+    dcfg = _detector_config(cfg)
+    scan_chunk = chunk  # the single-process front end's chunk
+    if total is not None:
+        chunk = max(1, min(chunk, -(-total // nproc)))
+    times, buf, mine = [], [], []
+    n_chunks = 0
+
+    def flush():
+        nonlocal n_chunks
+        n = len(buf)
+        if not n:
+            return
+        if n < chunk:
+            buf.extend([np.zeros_like(buf[0])] * (chunk - n))
+        if n_chunks % nproc == pid:
+            cands = detect.detect_candidates_batch(
+                torch.from_numpy(np.stack(buf)).to(device), dcfg)
+            mine.append([x.cpu().numpy() for x in cands])
+        n_chunks += 1
+        buf.clear()
+
+    for ts, gray in frame_iter:
+        times.append(ts)
+        buf.append(gray)
+        if len(buf) == chunk:
+            flush()
+    flush()
+    if not times:
+        raise ValueError("no decodable frames")
+    if not mine:
+        raise ValueError(
+            f"process {pid} owns no chunks ({n_chunks} chunks over "
+            f"{nproc} processes): use fewer processes")
+    mmax = -(-n_chunks // nproc)
+    local = [np.stack([m[j] for m in mine]
+                      + [np.zeros_like(mine[0][j])] * (mmax - len(mine)))
+             for j in range(len(mine[0]))]
+    ordered = [np.concatenate([g[c % nproc, c // nproc]
+                               for c in range(n_chunks)])
+               for g in pdist.all_gather_host(local)]
+
+    tlen = len(times)
+    table = detect.slot_table_init(dcfg.capacity, device)
+    seen = torch.zeros(dcfg.capacity, dtype=torch.int32, device=device)
+    outs = []
+    for f0 in range(0, tlen, scan_chunk):
+        n = min(scan_chunk, tlen - f0)
+        det_c, det_m, reset, ids_f, table, seen, dropped = \
+            detect.assign_sequence_lru(
+                dcfg, table, seen, f0,
+                *(torch.from_numpy(a[f0:f0 + n]).to(device)
+                  for a in ordered))
+        if n < scan_chunk:  # as the single front end's padded tail
+            det_c = torch.cat([det_c, det_c.new_zeros(
+                (scan_chunk - n, *det_c.shape[1:]))])
+            det_m = torch.cat([det_m, det_m.new_zeros(
+                (scan_chunk - n, *det_m.shape[1:]))])
+        outs.append(_pnp_chunk(cam, cfg, det_c, det_m, reset, ids_f,
+                               dropped, n))
+    return _loader_tuple(times, outs, cam, table, cfg, dcfg, warn=pid == 0)
+
+
+def _pnp_chunk(cam, cfg: SlamAppConfig, det_c, det_m, reset, ids_f,
+               dropped, n: int):
+    """A chunk's slot corners through batched PnP: (t_cl, q_cl, mask,
+    ambiguity, reset, ids_f, dropped, n real frames)."""
+    res = pnp.solve_square_pnp(cam, det_c, cfg.marker_size)
+    mask = det_m & (res.err < cfg.max_reproj_px)
+    amb = res.err / torch.clamp(res.err2, min=1e-9)
+    return res.t_cl, res.q_cl, mask, amb, reset, ids_f, dropped, n
+
+
+def _loader_tuple(times, outs, cam, table, cfg: SlamAppConfig,
+                  dcfg: detect.DetectorConfig, warn: bool = True):
+    """The chunks' outputs -> the loader tuple, as numpy arrays; warns
+    when the id->slot table saturated."""
     cat = lambda i: np.concatenate(
         [o[i][:o[-1]].cpu().numpy() for o in outs])
     dropped_ids = int(sum(int(o[6][:o[-1]].sum()) for o in outs))
-    if dropped_ids:
+    if dropped_ids and warn:
         print(f"WARNING: {dropped_ids} marker sightings found NO free "
               f"slot (id->slot table saturated at capacity "
               f"{dcfg.capacity}); raise --capacity or set "
@@ -194,24 +289,31 @@ def _prefetched_video(path: str):
 
 
 def load_video_observations(cfg: SlamAppConfig, calib_dir,
-                            device: torch.device):
+                            device: torch.device, shard=None):
     """A video's loader tuple (see `load_observations`): the camera from
     ``calib_dir``'s camera_matrix.npy + dist_coeffs.npy (else the
-    config's), frames decoded ahead on a thread into the front end."""
+    config's), frames decoded ahead on a thread into the front end.
+    ``shard=(pid, nproc)`` shards the candidate pipeline over processes
+    (`_observations_from_frames_sharded`)."""
     k, d = cfg.camera_matrix, cfg.dist_coeffs
     if calib_dir:
         k = np.load(Path(calib_dir) / "camera_matrix.npy")
         d = np.load(Path(calib_dir) / "dist_coeffs.npy")
     cam = _camera(k, d, device)
-    return _observations_from_frames(_prefetched_video(cfg.input), cam, cfg,
-                                     device)
+    frames = _prefetched_video(cfg.input)
+    if shard and shard[1] > 1:
+        return _observations_from_frames_sharded(frames, cam, cfg, device,
+                                                 *shard)
+    return _observations_from_frames(frames, cam, cfg, device)
 
 
 def load_observations(src: NpzSource, cfg: SlamAppConfig,
-                      device: torch.device):
+                      device: torch.device, shard=None):
     """Return (times, t_cl (T,C,3), q_cl (T,C,4), mask (T,C), cam,
     ambiguity, slot_ids, reset, ids_seq); ``slot_ids`` maps slot ->
-    marker id for image input (None when the slot index is the id)."""
+    marker id for image input (None when the slot index is the id).
+    ``shard=(pid, nproc)`` shards image input's candidate pipeline over
+    processes (`_observations_from_frames_sharded`)."""
     k = src["camera_matrix"] if src.has("camera_matrix") \
         else cfg.camera_matrix
     d = src["dist_coeffs"] if src.has("dist_coeffs") else cfg.dist_coeffs
@@ -219,8 +321,13 @@ def load_observations(src: NpzSource, cfg: SlamAppConfig,
     if src.has("marker_size"):
         cfg.marker_size = float(src["marker_size"])
     if src.has("images"):
-        return _observations_from_frames(
-            zip(src.times, src["images"]), cam, cfg, device)
+        imgs = src["images"]
+        if shard and shard[1] > 1:
+            return _observations_from_frames_sharded(
+                zip(src.times, imgs), cam, cfg, device, *shard,
+                total=len(imgs))
+        return _observations_from_frames(zip(src.times, imgs), cam, cfg,
+                                         device)
     if src.has("corners"):
         res = pnp.solve_square_pnp(
             cam, torch.as_tensor(src["corners"], dtype=torch.float32,

@@ -380,7 +380,6 @@ def _meas_terms(cfg: GraphConfig, state: GraphState, pose_free
                 ) -> MeasTerms:
     """Linearize the measurement factors carried by `state` into summed
     normal-equation contributions."""
-    dt, dev = cfg.dtype, state.pose_q.device
     tcap, lcap, ld = cfg.max_poses, cfg.max_landmarks, cfg.lm_dim
     fp, fl = state.f_pose.long(), state.f_lm.long()
     r_m, jp_m, jl_m = _huber(cfg, *_meas_linearize(cfg, state))
@@ -390,7 +389,10 @@ def _meas_terms(cfg: GraphConfig, state: GraphState, pose_free
     jl_m = torch.where(valid[:, None, None], jl_m, 0.0)
 
     def zeros(*shape):
-        return torch.zeros(shape, dtype=dt, device=dev)
+        # made from a factor tensor, so that under torch.func.vmap (the
+        # sharded and fleet solves, parallel/sharded_ba.py) the buffer
+        # carries the batch and the index-adds accumulate per problem
+        return r_m.new_zeros(shape)
 
     w4 = _block_add(zeros(tcap, lcap, 6, ld), fp, fl, _outer(jp_m, jl_m))
     return MeasTerms(
@@ -431,7 +433,7 @@ def _pose_system(cfg: GraphConfig, state: GraphState, pose_free,
     eye6 = torch.eye(6, dtype=dt, device=dev)
     diag = diag + torch.where(~pose_free[:, None, None], eye6, 0.0)
     cross = _outer(ja_o, jb_o)                  # block (a, b) = (i+1, i)
-    h4 = torch.zeros((tcap, 6, tcap, 6), dtype=dt, device=dev)
+    h4 = diag.new_zeros((tcap, 6, tcap, 6))  # batched under vmap
     h4.diagonal(0, 0, 2).copy_(diag.permute(1, 2, 0))
     h4.diagonal(-1, 0, 2).copy_(cross.permute(1, 2, 0))
     h4.diagonal(1, 0, 2).copy_(cross.permute(2, 1, 0))
@@ -539,9 +541,9 @@ def _retract(state: GraphState, dp, dl, free_from):
                           lm=state.lm + dl[:, :3], lm_q=lm_q)
 
 
-def _cost_parts(cfg: GraphConfig, state: GraphState):
-    """Whitened squared error as (measurements + priors: a sum over
-    factors and landmarks, shardable; odometry: replicated poses only)."""
+def _shard_cost(cfg: GraphConfig, state: GraphState) -> torch.Tensor:
+    """Whitened squared error of the measurements and the landmark priors:
+    a sum over factors and landmarks, so shards of them add up."""
     fp, fl_i = state.f_pose.long(), state.f_lm.long()
     fq, ft, fl = state.pose_q[fp], state.pose_t[fp], state.lm[fl_i]
     if cfg.with_rotations:
@@ -551,21 +553,26 @@ def _cost_parts(cfg: GraphConfig, state: GraphState):
         r_m = _meas_residual(fq, ft, fl, state.f_tcl, state.f_sig)
     r_m, = _huber(cfg, r_m)
     r_m = torch.where(state.f_valid[:, None], r_m, 0.0)
-    r_o = _odom_residual(state.pose_q[1:], state.pose_t[1:],
-                         state.pose_q[:-1], state.pose_t[:-1],
-                         cfg.odom_sigma_rot, cfg.odom_sigma_t)
-    live = torch.arange(1, cfg.max_poses, device=fp.device) < state.num_poses
-    r_o = torch.where(live[:, None], r_o, 0.0)
     pr = state.lm - state.prior_lm_mean
     prior_cost = torch.sum(pr * torch.einsum("lij,lj->li",
                                              state.prior_lm_h, pr))
-    return torch.sum(r_m * r_m) + prior_cost, torch.sum(r_o * r_o)
+    return torch.sum(r_m * r_m) + prior_cost
+
+
+def _odom_cost(cfg: GraphConfig, state: GraphState) -> torch.Tensor:
+    """Whitened squared error of the odometry factors (poses only)."""
+    r_o = _odom_residual(state.pose_q[1:], state.pose_t[1:],
+                         state.pose_q[:-1], state.pose_t[:-1],
+                         cfg.odom_sigma_rot, cfg.odom_sigma_t)
+    live = torch.arange(1, cfg.max_poses,
+                        device=state.pose_q.device) < state.num_poses
+    r_o = torch.where(live[:, None], r_o, 0.0)
+    return torch.sum(r_o * r_o)
 
 
 def _cost_only(cfg: GraphConfig, state: GraphState) -> torch.Tensor:
     """Total whitened squared error at the current estimate."""
-    shardable, odom = _cost_parts(cfg, state)
-    return shardable + odom
+    return _shard_cost(cfg, state) + _odom_cost(cfg, state)
 
 
 def _optimize(cfg: GraphConfig, state: GraphState, iters: int, free_from
@@ -581,15 +588,30 @@ def _optimize(cfg: GraphConfig, state: GraphState, iters: int, free_from
             h_pp, w, h_ll, g_p, g_l, _ = _linearize(cfg, state, free_from)
             dp, dl = _schur_solve(cfg, h_pp, w, h_ll, g_p, g_l, lam)
             trial = _retract(state, dp, dl, free_from)
-            new_cost = _cost_only(cfg, trial)
-            accept = new_cost < cost
-            state = state._replace(**{
-                k: torch.where(accept, getattr(trial, k), getattr(state, k))
-                for k in _ESTIMATES})
-            lam = torch.clamp(torch.where(accept, lam / cfg.lm_factor,
-                                          lam * cfg.lm_factor), 1e-9, 1e6)
-            cost = torch.where(accept, new_cost, cost)
+            state, cost, lam = _lm_accept(cfg, trial, state,
+                                          _cost_only(cfg, trial), cost, lam)
     return state, cost
+
+
+def _lm_accept(cfg: GraphConfig, trial: GraphState, state: GraphState,
+               new_cost, cost, lam):
+    """The LM accept/reject and damping update, chosen on the device:
+    (the trial's estimates where its cost fell, else the state's; the
+    lower cost; lambda divided by lm_factor on accept, multiplied on
+    reject, within [1e-9, 1e6]). ``cost`` may carry a leading problem
+    axis, which the estimates share."""
+    accept = new_cost < cost
+
+    def pick(a, b):
+        return torch.where(
+            accept.view(*accept.shape, *[1] * (a.dim() - accept.dim())),
+            a, b)
+
+    state = state._replace(**{k: pick(getattr(trial, k), getattr(state, k))
+                              for k in _ESTIMATES})
+    lam = torch.clamp(torch.where(accept, lam / cfg.lm_factor,
+                                  lam * cfg.lm_factor), 1e-9, 1e6)
+    return state, torch.where(accept, new_cost, cost), lam
 
 
 def optimize_window(cfg: GraphConfig, state: GraphState,

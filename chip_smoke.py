@@ -12,13 +12,14 @@ non-zero, and no result line is printed):
                 (one nvcc per source, in parallel).
 3. kernels    — each kernel's wrapper against its plain PyTorch version
                 on the card, at its path's shapes, with the stated
-                tolerance: B1 labeling (the chunk's grids, and the
-                fleet streaming path's for 8 streams and for one
-                cohort's 2), B2 subpixel refinement (the
-                detector's schedule and the tracker's three over the
-                chunk, the tracker's real call, one frame x 64
-                corners, and the fleet streaming path's sweep and
-                tracked batches; each also without iterations), B3 MEKF
+                tolerance: B1 labeling (the chunk's grids, the fleet
+                streaming path's for 8 streams and for one cohort's 2,
+                and a dist rank's 16-frame chunk), B2 subpixel
+                refinement (the detector's schedule and the tracker's
+                three over the chunk, the tracker's real call, one
+                frame x 64 corners, the fleet streaming path's sweep
+                and tracked batches, and a dist rank's 16-frame chunk;
+                each also without iterations), B3 MEKF
                 update (point mode N = 201, M = 48; rotation mode N =
                 393, M = 112, and M = 224 at --max-obs 32; and 8
                 streams in one batched launch
@@ -97,17 +98,41 @@ non-zero, and no result line is printed):
                 solve seconds, the final cost (finite, no higher than the
                 ingested state's), ATE, peak device memory, and the
                 solve's device-busy share under torch.profiler.
+16. fleet-ba   — `run_offline --fleet 1x1` on the fleet's four image
+                inputs at float64 (the four problems batched on the
+                card), then `--fleet 2x2 --local-devices 4`: each sequence
+                within 1e-5 m of its own single run, B1 3 and B2 1 a
+                sequence, no B3; the warm solve's seconds and device
+                events an iteration against one problem's.
+17. sharded-ba — the large map's ingested state through
+                `sharded_batch_optimize` in one process at local devices
+                2 and 4: f32 seconds, events and busy share against the
+                unsharded solve; f64 within 1e-8 (cost, relative) and
+                1e-6 m of it.
+18. dist       — two processes on the one card over Gloo:
+                `run_offline --processes 2 --f64` on the main frames
+                (B1 3 and B2 1 on each rank, for the chunk it owns;
+                observations bit-identical to the single front end's;
+                within 1e-5 m of the single run), then the large map's
+                saved ingested state through the sharded solve in two
+                rank processes (`chip_smoke.py --rank-child` and
+                `--rank-solve` are those processes): seconds, device
+                events an iteration and busy share traced on rank 0,
+                the ranks' results bit-equal, f64 within 1e-6 m of the
+                unsharded.
 
 The line before the last is {"kernels": [...]} (each with its launches
 on the main path, or on its own path for B4 and B5, and its launches
-per 32-frame chunk on every path); the last line is
-{"ok": true, "device": {...}}. Imports nothing of JAX and nothing
-of the JAX package (aruco_slam_tpu).
+per 32-frame chunk on every path: the fleet-ba runs hold four
+sequences of one chunk each, the dist ranks one 16-frame chunk each);
+the last line is {"ok": true, "device": {...}}. Imports nothing of JAX
+and nothing of the JAX package (aruco_slam_tpu).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import statistics
 import subprocess
@@ -152,6 +177,18 @@ PROFILE_FRAMES = 64   # the online frames traced for the device-busy share
 LARGE_MARKERS = 512
 LARGE_FRAMES = 512
 LARGE_ITERS = 40
+# the distributed paths: a fleet sequence or a --processes run against its
+# single run (tests/test_dist.py's CLI bound, f64); the sharded large map
+# against the unsharded solve at f64; the in-process shard counts
+FLEET_BA_TOL = 1e-5   # m
+SHARD_COST_RTOL = 1e-8
+SHARD_TOL = 1e-6      # m
+SHARD_LOCAL = (2, 4)
+DIST_RANKS = 2        # the [dist] phase's processes (Gloo on the one card)
+# their front end's chunk: the main path's CHUNK frames spread so that
+# each rank owns one chunk (run_slam._observations_from_frames_sharded)
+DIST_CHUNK = -(-CHUNK // DIST_RANKS)
+PROFILE_ITERS = 5     # LM iterations traced for events and busy share
 # the detector's subpixel schedule, the tracker's three pulls and
 # detect.refine_corners' default
 DETECTOR_SCHED = ((6, 6), (3, 4))
@@ -316,10 +353,12 @@ def _b1(rng, dev):
     # (prop_iters 16) and 540x960 once (fine pass, max(16, 16 // 2)),
     # plus a 1080x1920 grid (the fine pass of 4K input); the fleet
     # streaming path labels the same grids for a sweep batch: all the
-    # streams (one schedule) or one cohort's
+    # streams (one schedule) or one cohort's; the [dist] ranks for their
+    # DIST_CHUNK-frame chunk
     cases = [((CHUNK, 270, 480), 16, 4), ((CHUNK, 540, 960), 16, 4),
              ((2, 1080, 1920), 16, 4)] + [
-        ((n, h, w), 16, 4) for n in (STREAMS, STREAMS // FLEET_COHORTS)
+        ((n, h, w), 16, 4)
+        for n in (STREAMS, STREAMS // FLEET_COHORTS, DIST_CHUNK)
         for h, w in ((270, 480), (540, 960))]
     worst = 0
     shapes = []
@@ -451,11 +490,12 @@ def _b2(frames, corners_true, mask_true, rng, dev):
         shapes.append(_b2_case(img[:1], c, sched, "a tracker pull"))
     # the fleet streaming path: a sweep batch of all the streams or one
     # cohort's, a tracked batch of all the streams or of the other
-    # cohorts' (one frame of each stream a call)
+    # cohorts' (one frame of each stream a call); a [dist] rank's chunk
     part = STREAMS // FLEET_COHORTS
     for sched, n, per_frame, tag in [
             (DETECTOR_SCHED, STREAMS, 384, "a fleet sweep"),
-            (DETECTOR_SCHED, part, 384, "a cohort sweep")] + [
+            (DETECTOR_SCHED, part, 384, "a cohort sweep"),
+            (DETECTOR_SCHED, DIST_CHUNK, 384, "a dist rank's chunk")] + [
             (s, n, 64, tag) for n, tag in ((STREAMS, "a fleet pull"),
                                            (STREAMS - part, "a cohorts pull"))
             for s in TRACKER_SCHEDS]:
@@ -771,7 +811,8 @@ def _reset_counts() -> None:
 
 def _counts() -> dict:
     import torch
-    torch.cuda.synchronize()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
     return {fn.__name__: fn.launches for fn in _wrappers()}
 
 
@@ -1535,7 +1576,384 @@ def phase_offline(npz: Path, tmp: Path, smi: str):
             or not big.ate < ATE_BOUND:
         raise AssertionError(f"offline large map: cost {cost0} -> "
                              f"{big.cost}, ATE {big.ate}")
-    return launches, out
+    return launches, out, (cost0, gcfg, state, traj.cam_t)
+
+
+def _warm_s(fn):
+    """(seconds, result) of a second call of fn() (the first warms it),
+    synced."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _max_diff(a, b) -> float:
+    import numpy as np
+    return float(np.abs(np.asarray(a, np.float64)
+                        - np.asarray(b, np.float64)).max())
+
+
+def _offline_argv(inputs, tmp: Path, tag: str, *flags) -> list[str]:
+    return ["--input", ",".join(map(str, inputs)), "--platform", PLATFORM,
+            "--f64", "--trajectory", str(tmp / f"{tag}.txt"),
+            "--map", str(tmp / f"{tag}_map.txt"), *flags]
+
+
+def phase_fleet_ba(tmp: Path, paths, smi: str) -> dict:
+    """run_offline --fleet on the fleet's four image inputs at float64:
+    1x1 (the four problems batched on the card) and 2x2 with
+    --local-devices 4 (two problems a data row, each landmark-sharded
+    over 2): each sequence within FLEET_BA_TOL of its own single run, B1 3
+    and B2 1 a sequence, B3 none. Then each solve again, warm, from the
+    ingested states: seconds and device events an iteration, against one
+    problem's."""
+    import torch
+    from aruco_slam_tpu_torch.apps import run_offline
+    from aruco_slam_tpu_torch.graph import ba
+    from aruco_slam_tpu_torch.parallel import sharded_ba
+    singles, captured = [], {}
+    real_batch = run_offline.batch_optimize
+    real_fleet = run_offline.sharded_fleet_optimize
+
+    def batch(cfg, state, iters):
+        captured["one"] = (cfg, state, iters)
+        return real_batch(cfg, state, iters=iters)
+
+    def fleet(cfg, states, mesh, iters):
+        captured["fleet"] = (cfg, states, mesh, iters)
+        return real_fleet(cfg, states, mesh, iters=iters)
+
+    run_offline.batch_optimize = batch
+    run_offline.sharded_fleet_optimize = fleet
+    counts, out = {}, {}
+    try:
+        for i, path in enumerate(paths):
+            singles.append(run_offline.main(_offline_argv(
+                [path], tmp, f"fba_one{i}")))
+        for shape, flags in (("1x1", ()), ("2x2", ("--local-devices", "4"))):
+            _reset_counts()
+            res = run_offline.main(_offline_argv(
+                paths, tmp, f"fba_{shape}", "--fleet", shape, *flags))
+            counts[shape] = _counts()
+            got = [counts[shape][k] for k in ("flood_scan_labels",
+                                              "refine_corners",
+                                              "fused_update")]
+            worst = max(_max_diff(r.cam_traj, one.cam_traj)
+                        for r, one in zip(res, singles))
+            log(f"[fleet-ba] --fleet {' '.join((shape, *flags))}: "
+                f"{len(res)} sequences, launches "
+                f"{counts[shape]}; max |fleet - single| {worst:.3e} m (tol "
+                f"{FLEET_BA_TOL}); solve {res[0].seconds['solve']:.3f} s, "
+                f"ingest {res[0].seconds['ingest']:.3f} s in the run")
+            if got != [3 * len(paths), len(paths), 0] \
+                    or not worst <= FLEET_BA_TOL:
+                raise AssertionError(f"fleet-ba {shape}: B1/B2/B3 {got}, "
+                                     f"{worst} m from the single runs")
+            cfg, states, mesh, iters = captured["fleet"]
+            sec, _ = _warm_s(functools.partial(
+                sharded_ba.sharded_fleet_optimize, cfg, states, mesh,
+                iters=iters))
+            busy, _, events = busy_share(functools.partial(
+                sharded_ba.sharded_fleet_optimize, cfg, states, mesh,
+                iters=PROFILE_ITERS))
+            out[shape] = {"solve_s": sec, "busy": busy,
+                          "events_per_iter": events / PROFILE_ITERS}
+    finally:
+        run_offline.batch_optimize = real_batch
+        run_offline.sharded_fleet_optimize = real_fleet
+    cfg, state, iters = captured["one"]
+    sec, _ = _warm_s(functools.partial(ba.batch_optimize, cfg, state,
+                                       iters=iters))
+    busy, _, events = busy_share(functools.partial(
+        ba.batch_optimize, cfg, state, iters=PROFILE_ITERS))
+    out["one"] = {"solve_s": sec, "busy": busy,
+                  "events_per_iter": events / PROFILE_ITERS}
+    for k, v in out.items():
+        what = "one problem" if k == "one" else \
+            f"{len(paths)} problems, --fleet {k}"
+        log(f"[fleet-ba] warm {iters}-iteration f64 solve, {what}: "
+            f"{v['solve_s']:.3f} s, {v['events_per_iter']:.1f} device events "
+            f"an iteration, device busy {v['busy']} (torch.profiler, "
+            f"{PROFILE_ITERS} iterations) on {smi}")
+    return {"fleet-ba 1x1": counts["1x1"], "fleet-ba 2x2": counts["2x2"],
+            "times": out}
+
+
+def _to_f64(cfg, state):
+    import torch
+    from aruco_slam_tpu_torch.graph import ba
+    cfg64 = cfg._replace(dtype=torch.float64)
+    return cfg64, ba.state_from_numpy(cfg64, ba.state_to_numpy(state),
+                                      device=state.pose_q.device)
+
+
+def phase_sharded_ba(ingested, smi: str) -> dict:
+    """The large map's ingested state through `sharded_batch_optimize` in
+    one process at local_devices 2 and 4: float32 warm seconds, device
+    events an iteration and busy share against the unsharded solve (cost
+    finite, no higher than ingested); then float64, sharded against
+    unsharded: cost within SHARD_COST_RTOL, trajectory and landmarks
+    within SHARD_TOL."""
+    import numpy as np
+    from aruco_slam_tpu_torch.bench.ate import ate_rmse
+    from aruco_slam_tpu_torch.graph import ba
+    from aruco_slam_tpu_torch.parallel import dist, sharded_ba
+    cost0, cfg, state, gt_t = ingested
+    t = len(gt_t)
+    runs = {"unsharded": lambda c, s, n: ba.batch_optimize(c, s, iters=n)}
+    for m in SHARD_LOCAL:
+        mesh = dist.make_mesh(local_devices=m)
+        runs[f"local {m}"] = lambda c, s, n, mesh=mesh: \
+            sharded_ba.sharded_batch_optimize(c, s, mesh, iters=n)
+    out, f32 = {}, {}
+    for name, run in runs.items():
+        sec, (res, cost) = _warm_s(lambda: run(cfg, state, LARGE_ITERS))
+        busy, _, events = busy_share(lambda: run(cfg, state, PROFILE_ITERS))
+        cost = float(cost)
+        err = ate_rmse(res.pose_t[:t].cpu().numpy(), gt_t)
+        f32[name] = res.pose_t[:t].cpu().numpy()
+        out[name] = {"solve_s": sec, "busy": busy, "cost": cost,
+                     "ate_m": err, "events_per_iter": events / PROFILE_ITERS}
+        log(f"[sharded-ba] f32 {name}: {LARGE_ITERS}-iteration solve "
+            f"{sec:.3f} s warm; over {PROFILE_ITERS} iterations under "
+            f"torch.profiler {events / PROFILE_ITERS:.1f} device events an "
+            f"iteration, device busy {busy}; cost {cost0:.3f} ingested -> "
+            f"{cost:.3f}; ATE {err:.4f} m; max |pose - unsharded| "
+            f"{_max_diff(f32[name], f32['unsharded']):.3e} m on {smi}")
+        if not np.isfinite(cost) or cost > cost0 or not err < ATE_BOUND:
+            raise AssertionError(f"sharded-ba f32 {name}: cost {cost0} -> "
+                                 f"{cost}, ATE {err}")
+    cfg64, state64 = _to_f64(cfg, state)
+    ref = None
+    for name, run in runs.items():
+        res, cost = run(cfg64, state64, LARGE_ITERS)
+        got = (float(cost), res.pose_t[:t].cpu().numpy(),
+               res.lm.cpu().numpy())
+        if ref is None:
+            ref = got
+            out["f64_unsharded"] = {"cost": got[0], "pose_t": got[1],
+                                    "lm": got[2]}
+            continue
+        rel = abs(got[0] - ref[0]) / abs(ref[0])
+        dt, dl = _max_diff(got[1], ref[1]), _max_diff(got[2], ref[2])
+        log(f"[sharded-ba] f64 {name} against unsharded: cost {got[0]:.9f} "
+            f"vs {ref[0]:.9f} (rel {rel:.2e}, tol {SHARD_COST_RTOL}); max "
+            f"|pose_t| diff {dt:.3e} m, |lm| diff {dl:.3e} m (tol "
+            f"{SHARD_TOL})")
+        if not (rel <= SHARD_COST_RTOL and dt <= SHARD_TOL
+                and dl <= SHARD_TOL):
+            raise AssertionError(f"sharded-ba f64 {name}: cost rel {rel}, "
+                                 f"pose {dt} m, landmarks {dl} m")
+    return out
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _spawn_ranks(args) -> None:
+    """DIST_RANKS processes of `chip_smoke.py *args` joined as one run,
+    launched as run_offline --processes launches its children."""
+    from aruco_slam_tpu_torch.apps import run_offline
+    rc = run_offline._spawn(
+        [sys.executable, str(ROOT / "chip_smoke.py"), *args], DIST_RANKS,
+        f"127.0.0.1:{_free_port()}")
+    if any(rc):
+        raise AssertionError(f"rank processes {args[0]} failed: exit codes "
+                             f"{rc}")
+
+
+def rank_child(out_dir: str, argv) -> int:
+    """A `run_offline --processes` child: run_offline.main(argv) with the
+    launch counts reset first, then this rank's counts and observations
+    into out_dir."""
+    import os
+    import numpy as np
+    sys.path.insert(0, str(ROOT))
+    from aruco_slam_tpu_torch.apps import run_offline
+    obs = []
+    real = run_offline.load_observations
+
+    def load(*a, **k):
+        obs.append(real(*a, **k))
+        return obs[-1]
+
+    run_offline.load_observations = load
+    _reset_counts()
+    run_offline.main(argv)
+    pid = os.environ["SLAM_PROCESS_ID"]
+    (Path(out_dir) / f"rank{pid}.json").write_text(json.dumps(_counts()))
+    o, = obs
+    np.savez(Path(out_dir) / f"obs{pid}.npz", t_cl=o[1], q_cl=o[2],
+             mask=o[3], slot_ids=o[6])
+    return 0
+
+
+def rank_solve(out_dir: str, platform: str) -> int:
+    """One rank of the two-process large-map solve: the saved ingested
+    state through `sharded_batch_optimize` over every rank (float32 twice,
+    the second timed warm, then PROFILE_ITERS iterations that rank 0
+    traces for device events and busy share, then float64); rank 0
+    prints the backend."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from aruco_slam_tpu_torch._device import resolve_device
+    from aruco_slam_tpu_torch.graph import ba
+    from aruco_slam_tpu_torch.parallel import dist, sharded_ba
+    dist.initialize(platform=platform)
+    dev = resolve_device(platform)
+    out = Path(out_dir)
+    spec = json.loads((out / "cfg.json").read_text())
+    arrays = dict(np.load(out / "state.npz"))
+    mesh = dist.make_mesh()
+    res = {}
+    for dt in (torch.float32, torch.float64):
+        cfg = ba.GraphConfig(**spec, dtype=dt)
+        state = ba.state_from_numpy(cfg, arrays, device=dev)
+        secs = []
+        for _ in range(2 if dt == torch.float32 else 1):
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o, cost = sharded_ba.sharded_batch_optimize(cfg, state, mesh,
+                                                        iters=LARGE_ITERS)
+            float(cost)
+            secs.append(time.perf_counter() - t0)
+        tag = "f32" if dt == torch.float32 else "f64"
+        if dt == torch.float32:
+            # every rank runs the traced solve's collectives; rank 0 traces
+            def profiled():
+                float(sharded_ba.sharded_batch_optimize(
+                    cfg, state, mesh, iters=PROFILE_ITERS)[1])
+            if dist.process_index() == 0:
+                busy, _, events = busy_share(profiled)
+                res["profile"] = np.asarray(
+                    [np.nan if busy is None else busy, events])
+            else:
+                profiled()
+        res.update({f"{tag}_cost": cost.cpu().numpy(),
+                    f"{tag}_seconds": np.asarray(secs),
+                    **{f"{tag}_{k}": getattr(o, k).cpu().numpy()
+                       for k in ("pose_q", "pose_t", "lm", "lm_q")}})
+    np.savez(out / f"solve{dist.process_index()}.npz", **res)
+    return 0
+
+
+def phase_dist(npz: Path, tmp: Path, ingested, f64_ref, smi: str) -> dict:
+    """Two processes over torch.distributed on the card (Gloo over CUDA
+    tensors: they share it). run_offline --processes 2 --f64 on the main
+    frames: each rank launches B1 and B2 only for the chunk it owns,
+    the observations of both ranks against the single-process front
+    end's, the trajectory within FLEET_BA_TOL of the single run. Then the
+    large map's ingested state, saved with state_to_numpy, through the
+    sharded solve in two rank processes: seconds, the two ranks' poses
+    bit-equal, f64 within SHARD_TOL of the unsharded solve."""
+    import numpy as np
+    from aruco_slam_tpu_torch.apps import run_offline
+    from aruco_slam_tpu_torch.graph import ba
+    obs = []
+    real_load = run_offline.load_observations
+
+    def load(*a, **k):
+        obs.append(real_load(*a, **k))
+        return obs[-1]
+
+    run_offline.load_observations = load
+    try:
+        single = run_offline.main(_offline_argv([npz], tmp, "dist_single"))
+    finally:
+        run_offline.load_observations = real_load
+    want = obs[0]
+    ranks = tmp / "ranks"
+    ranks.mkdir()
+    real_cmd = run_offline._child_command
+    run_offline._child_command = lambda: [
+        sys.executable, str(ROOT / "chip_smoke.py"), "--rank-child",
+        str(ranks)]
+    t0 = time.perf_counter()
+    try:
+        run_offline.main(_offline_argv(
+            [npz], tmp, "dist_multi", "--processes", str(DIST_RANKS),
+            "--coordinator",
+            f"127.0.0.1:{_free_port()}"))
+    finally:
+        run_offline._child_command = real_cmd
+    wall = time.perf_counter() - t0
+    from aruco_slam_tpu_torch.io import read_trajectory
+    multi = read_trajectory(tmp / "dist_multi.txt")[1]
+    diff = _max_diff(multi, single.cam_traj)
+    counts = [json.loads((ranks / f"rank{r}.json").read_text())
+              for r in range(DIST_RANKS)]
+    same = []
+    for r in range(DIST_RANKS):
+        got = np.load(ranks / f"obs{r}.npz")
+        same.append(all(np.array_equal(got[k], w, equal_nan=True)
+                        for k, w in (("t_cl", want[1]), ("q_cl", want[2]),
+                                     ("mask", want[3]),
+                                     ("slot_ids", want[6]))))
+    log(f"[dist] run_offline --processes {DIST_RANKS} --f64 on the main "
+        f"frames: {wall:.3f} s wall (the processes' start included); "
+        f"launches per rank "
+        f"{counts}; observations bit-identical to the single-process front "
+        f"end per rank {same}; max |multi - single| {diff:.3e} m (tol "
+        f"{FLEET_BA_TOL})")
+    b = [[c[k] for k in ("flood_scan_labels", "refine_corners",
+                         "fused_update")] for c in counts]
+    if b != [[3, 1, 0]] * DIST_RANKS or not all(same) \
+            or not diff <= FLEET_BA_TOL:
+        raise AssertionError(f"dist: B1/B2/B3 per rank {b} (one "
+                             f"{DIST_CHUNK}-frame chunk each expected), "
+                             f"observations identical "
+                             f"{same}, {diff} m from the single run")
+
+    cost0, cfg, state, gt_t = ingested
+    solve = tmp / "solve"
+    solve.mkdir()
+    spec = {k: v for k, v in cfg._asdict().items() if k != "dtype"}
+    (solve / "cfg.json").write_text(json.dumps(spec))
+    np.savez(solve / "state.npz", **ba.state_to_numpy(state))
+    t0 = time.perf_counter()
+    _spawn_ranks(["--rank-solve", str(solve), PLATFORM])
+    wall = time.perf_counter() - t0
+    r0, r1 = (np.load(solve / f"solve{r}.npz") for r in range(2))
+    equal = all(r0[k].tobytes() == r1[k].tobytes()
+                for tag in ("f32", "f64")
+                for k in (f"{tag}_{e}" for e in ("cost", "pose_q", "pose_t",
+                                                 "lm", "lm_q")))
+    busy, events = r0["profile"].tolist()
+    busy = None if np.isnan(busy) else busy
+    t = len(gt_t)
+    rel = abs(float(r0["f64_cost"]) - f64_ref["cost"]) / abs(f64_ref["cost"])
+    dt = _max_diff(r0["f64_pose_t"][:t], f64_ref["pose_t"])
+    dl = _max_diff(r0["f64_lm"], f64_ref["lm"])
+    c32 = float(r0["f32_cost"])
+    secs = r0["f32_seconds"].tolist()
+    log(f"[dist] large map over {DIST_RANKS} processes ({DIST_RANKS} "
+        f"shards): f32 {LARGE_ITERS}-iteration solve {secs[0]:.3f} s cold, "
+        f"{secs[1]:.3f} s warm; over {PROFILE_ITERS} iterations under "
+        f"torch.profiler on rank 0 {events / PROFILE_ITERS:.1f} device "
+        f"events an iteration, device busy {busy}; f64 "
+        f"{float(r0['f64_seconds'][0]):.3f} s; "
+        f"{wall:.3f} s wall with the processes' start; f32 cost {cost0:.3f} "
+        f"ingested -> {c32:.3f}; ranks' results bit-equal {equal}; f64 "
+        f"against unsharded: cost rel {rel:.2e}, max |pose_t| {dt:.3e} m, "
+        f"|lm| {dl:.3e} m (tol {SHARD_TOL}) on {smi}")
+    if not (equal and np.isfinite(c32) and c32 <= cost0
+            and rel <= SHARD_COST_RTOL and dt <= SHARD_TOL
+            and dl <= SHARD_TOL):
+        raise AssertionError("dist large map: ranks equal "
+                             f"{equal}, f32 cost {c32}, f64 rel {rel}, "
+                             f"pose {dt} m, landmarks {dl} m")
+    return {**{f"dist rank{r}": c for r, c in enumerate(counts)},
+            "large_f32_s": secs, "obs_identical": same}
 
 
 def main() -> int:
@@ -1628,7 +2046,17 @@ def main() -> int:
         paths["factorgraph"] = phase_factorgraph(argv, traj.cam_t, main_fps,
                                                  smi)
         phase_factorgraph_online(dev, smi)
-        paths["offline"], _ = phase_offline(npz, Path(tmp), smi)
+        paths["offline"], _, ingested = phase_offline(npz, Path(tmp), smi)
+        fleet_ba = phase_fleet_ba(Path(tmp), fleet_paths, smi)
+        paths["fleet-ba 1x1"] = fleet_ba["fleet-ba 1x1"]
+        paths["fleet-ba 2x2"] = fleet_ba["fleet-ba 2x2"]
+        _reset_counts()
+        sharded = phase_sharded_ba(ingested, smi)
+        paths["sharded-ba"] = _counts()
+        ranks = phase_dist(npz, Path(tmp), ingested,
+                           sharded["f64_unsharded"], smi)
+        paths.update({k: v for k, v in ranks.items()
+                      if k.startswith("dist rank")})
     # launches: the main path's, or for B4 and B5 (which the main path
     # does not run) their own path's
     own = {"flood_labels": "stencil-only", "refine_offsets": "refine_corners"}
@@ -1643,4 +2071,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    # the rank processes of the [dist] phase
+    if sys.argv[1:2] == ["--rank-child"]:
+        sys.exit(rank_child(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1:2] == ["--rank-solve"]:
+        sys.exit(rank_solve(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -699,3 +699,35 @@ def test_graph_solves_read_nothing_back(device, dtype):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert bool(torch.isfinite(cost)) and int(state.num_poses) == 21
+
+
+@pytest.mark.parametrize("local", [1, 2, 4])
+def test_sharded_lm_cuda_matches_cpu_reads_nothing_back(device, local,
+                                                         monkeypatch):
+    """parallel/sharded_ba's landmark-sharded LM on the card (f64,
+    ``local`` mesh devices batched by vmap in one process): poses and
+    landmarks within 1e-6 m of the CPU's, and its loop (`_lm_iterations`)
+    under torch.cuda.set_sync_debug_mode("error")."""
+    from aruco_slam_tpu_torch.parallel import dist, sharded_ba
+    obs, cfg = _graph_orbit(20, 22)
+    mesh = dist.make_mesh(local_devices=local)
+    want, want_cost = sharded_ba.sharded_batch_optimize(
+        cfg, _graph_ingest(cfg, obs, torch.device("cpu"), 20), mesh,
+        iters=10)
+    real = sharded_ba._lm_iterations
+
+    def guarded(*args, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    monkeypatch.setattr(sharded_ba, "_lm_iterations", guarded)
+    got, cost = sharded_ba.sharded_batch_optimize(
+        cfg, _graph_ingest(cfg, obs, device, 20), mesh, iters=10)
+    assert abs(float(cost) - float(want_cost)) <= 1e-9 * abs(float(want_cost))
+    for k in ("pose_t", "lm"):
+        diff = (getattr(got, k).cpu() - getattr(want, k)).abs().max()
+        assert float(diff) < 1e-6, k

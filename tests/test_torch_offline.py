@@ -10,6 +10,8 @@ comparison.
 """
 
 import os
+import signal
+import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -155,10 +157,9 @@ def test_run_offline_result(sequences, tmp_path):
     assert set(res.seconds) == {"front_end", "ingest", "solve"}
 
 
-# every JAX run_offline flag the port refuses: the distributed solve
-# (ROADMAP A10), then the profile, checkpoints and viewers (A12)
-REFUSED = [["--distributed"], ["--processes", "2"], ["--fleet", "1x1"],
-           ["--profile", "{tmp}/p"], ["--checkpoint-every", "4"],
+# every JAX run_offline flag the port refuses: the profile, checkpoints
+# and viewers (ROADMAP A12)
+REFUSED = [["--profile", "{tmp}/p"], ["--checkpoint-every", "4"],
            ["--resume", "{tmp}/ck.npz"], ["--viz-2d"], ["--viz-3d"],
            ["--export-video"]]
 
@@ -174,12 +175,67 @@ def test_run_offline_refuses_unported(sequences, tmp_path, flags):
     assert not list(tmp_path.iterdir())
 
 
+def _run_group(args):
+    """run_offline as a command in its own session: --processes starts
+    grandchildren, and a run past 120 s kills the whole group."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "aruco_slam_tpu_torch.apps.run_offline",
+         *args], cwd=ROOT, env=env, text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=120)
+    except subprocess.TimeoutExpired:
+        pytest.fail("run_offline --processes hung")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    assert proc.returncode == 0, f"{out}\n{err}"
+
+
+@pytest.mark.parametrize("flags", [["--distributed"], ["--fleet", "1x1"],
+                                   ["--processes", "2"]],
+                         ids=lambda f: f[0])
+def test_run_offline_distributed_flags_match_plain_run(sequences, tmp_path,
+                                                       flags):
+    """The distributed flags on one sequence give the plain run's
+    trajectory and map (f64, pose-level input, within 1e-6 m): alone,
+    --distributed is one process and the plain solve; --fleet 1x1 solves
+    a fleet of one through the batched fleet LM; --processes 2 shards the
+    solve over two OS processes joined over Gloo."""
+    npz = sequences[1]
+    base = ["--input", str(npz), "--platform", "cpu", "--iters", "15",
+            "--f64"]
+    toff.main([*base, "--trajectory", str(tmp_path / "plain.txt"),
+               "--map", str(tmp_path / "plain_map.txt")])
+    args = [*base, "--trajectory", str(tmp_path / "t.txt"), "--map",
+            str(tmp_path / "m.txt"), *flags]
+    if flags[0] == "--processes":
+        port = socket.socket()
+        port.bind(("127.0.0.1", 0))
+        with port:
+            addr = f"127.0.0.1:{port.getsockname()[1]}"
+        _run_group([*args, "--coordinator", addr])
+    else:
+        toff.main(args)
+    np.testing.assert_allclose(read_trajectory(tmp_path / "t.txt")[1],
+                               read_trajectory(tmp_path / "plain.txt")[1],
+                               atol=F64_RUN)
+    got, want = load_map(tmp_path / "m.txt"), load_map(
+        tmp_path / "plain_map.txt")
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1], want[1], atol=F64_RUN)
+
+
 @pytest.mark.parametrize("flags", [
     ["--local-devices", "2"], ["--coordinator", "127.0.0.1:1"],
     ["--checkpoint", "{tmp}/ck.npz"], ["--viz-dir", "{tmp}/viz"],
     ["--viz-3d-renderer", "fast"]], ids=lambda f: f[0])
 def test_run_offline_accepts_modifiers(sequences, tmp_path, flags):
-    """Flags that only modify refused ones parse and change nothing."""
+    """Modifier flags without the flag they modify parse and change
+    nothing (--local-devices and --coordinator act with --distributed,
+    --processes or --fleet)."""
     flags = [f.format(tmp=tmp_path) for f in flags]
     res = toff.main(["--input", str(sequences[1]), "--platform", "cpu",
                      "--iters", "2", "--trajectory", str(tmp_path / "t.txt"),

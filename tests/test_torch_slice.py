@@ -363,6 +363,9 @@ def test_port_imports_no_jax():
         "import aruco_slam_tpu_torch.bench.render\n"
         "import aruco_slam_tpu_torch.ops.detect\n"
         "import aruco_slam_tpu_torch.parallel.multi_slam\n"
+        "import aruco_slam_tpu_torch.parallel.dist\n"
+        "import aruco_slam_tpu_torch.parallel.sharded_ba\n"
+        "import aruco_slam_tpu_torch.apps.run_offline\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'aruco_slam_tpu'))\n"
         "assert not bad, bad\n"
