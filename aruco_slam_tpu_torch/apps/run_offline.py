@@ -37,10 +37,14 @@ writes outputs.
 npz input may carry `images`, `corners` or pose-level `t_cl` bundles;
 video input (with ``--calib``) goes through run_slam's decode ring and
 front end; recycled slots (``--slot-max-age``) are epoch-split into
-fresh landmark columns. ``--platform cuda`` is the default and raises
-when no card is present. Every flag of the JAX run_offline parses, with
-its usage errors; checkpoints, ``--profile`` and the viewers are refused
-with a "not ported yet" error.
+fresh landmark columns. ``--checkpoint-every N --checkpoint PATH``
+saves the pass-1 ingest's (graph state, frames done) every N frames (the
+main process writes; `utils/checkpoint.py`, JAX's format), ``--resume
+PATH`` restarts the ingest from it on every process; ``--profile DIR``
+writes a torch.profiler trace of the front end, the ingest and the solve
+to DIR/trace.json. ``--platform cuda`` is the default and raises when no
+card is present. Every flag of the JAX run_offline parses, with its
+usage errors; the viewers are refused with a "not ported yet" error.
 """
 
 from __future__ import annotations
@@ -72,6 +76,9 @@ from aruco_slam_tpu_torch.io import (
 from aruco_slam_tpu_torch.parallel import dist as pdist
 from aruco_slam_tpu_torch.parallel.sharded_ba import (
     sharded_batch_optimize, sharded_fleet_optimize, stack_graphs)
+from aruco_slam_tpu_torch.utils.checkpoint import (
+    load_checkpoint, save_checkpoint)
+from aruco_slam_tpu_torch.utils.profiling import device_trace
 
 
 class OfflineResult(NamedTuple):
@@ -175,20 +182,34 @@ def _load_all(cfg: SlamAppConfig, inputs: list[str], calib,
 
 
 def _ingest(gcfg: GraphConfig, cfg: SlamAppConfig, t_cl, mask, q_cl,
-            with_rotations: bool, device: torch.device) -> GraphState:
+            with_rotations: bool, device: torch.device,
+            checkpoint_every: int = 0, checkpoint: str = "",
+            resume: str | None = None, is_main: bool = True) -> GraphState:
     """Pass 1: per-frame ingest with a cheap incremental window solve,
     the warm start batch LM needs (from the raw zero-motion init it
-    stalls far from the optimum)."""
+    stalls far from the optimum). With ``checkpoint_every`` N the main
+    process saves (state, frames done) to ``checkpoint`` every N frames
+    but after the last; ``resume`` restarts from such a file."""
     state = init_graph(gcfg, device=device)
     t_cl = torch.as_tensor(np.asarray(t_cl), device=device)
     mask = torch.as_tensor(np.asarray(mask), device=device)
     q_cl = torch.as_tensor(np.asarray(q_cl), device=device) \
         if with_rotations else None
-    for i in range(t_cl.shape[0]):
+    t = t_cl.shape[0]
+    start = 0
+    if resume:
+        state, fdone = load_checkpoint(resume, (state, np.int64(0)))
+        start = int(fdone)
+        if is_main:
+            print(f"resumed from {resume} at ingest frame {start}")
+    for i in range(start, t):
         state = add_frame(gcfg, state, t_cl[i], mask[i],
                           None if q_cl is None else q_cl[i])
         state, _ = optimize_window(gcfg, state, window=cfg.window,
                                    iters=cfg.window_iters)
+        if checkpoint_every and is_main and i + 1 < t \
+                and (i + 1) % checkpoint_every == 0:
+            save_checkpoint(checkpoint, (state, np.int64(i + 1)))
     return state
 
 
@@ -288,18 +309,23 @@ def _parser() -> argparse.ArgumentParser:
                         "--input) on a DATA x KF mesh: sequences split over "
                         "DATA, each landmark-sharded over KF; outputs get "
                         "_seqI suffixes")
-    # the JAX run_offline's paths not ported yet: refused in main; the
-    # modifiers of refused flags are accepted
+    # the JAX run_offline's viewers, not ported yet: refused in main;
+    # the modifiers of refused flags are accepted
     p.add_argument("--viz-2d", action="store_true")
     p.add_argument("--viz-3d", action="store_true")
     p.add_argument("--viz-3d-renderer", default="mpl",
                    choices=["mpl", "fast"])
     p.add_argument("--viz-dir", default="outputs/images")
     p.add_argument("--export-video", action="store_true")
-    p.add_argument("--profile", default=None, metavar="DIR")
-    p.add_argument("--checkpoint-every", type=int, default=0, metavar="N")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the run to "
+                        "DIR/trace.json")
+    p.add_argument("--checkpoint-every", type=int, default=0, metavar="N",
+                   help="checkpoint the pass-1 ingest every N frames "
+                        "(0 = off)")
     p.add_argument("--checkpoint", default="outputs/checkpoint.npz")
-    p.add_argument("--resume", default=None)
+    p.add_argument("--resume", default=None,
+                   help="resume the pass-1 ingest from a checkpoint")
     return p
 
 
@@ -404,10 +430,7 @@ def main(argv=None):
     if args.fleet and (args.checkpoint_every or args.resume):
         p.error("--fleet does not checkpoint (per-sequence ingest is "
                 "cheap; checkpoint single-sequence runs)")
-    for flag, on in (("--profile", args.profile),
-                     ("--checkpoint-every", args.checkpoint_every),
-                     ("--resume", args.resume),
-                     ("--viz-2d", args.viz_2d), ("--viz-3d", args.viz_3d),
+    for flag, on in (("--viz-2d", args.viz_2d), ("--viz-3d", args.viz_3d),
                      ("--export-video", args.export_video)):
         if on:
             _not_ported(flag)
@@ -437,34 +460,42 @@ def main(argv=None):
     # the processes; the slot scan and PnP replicate (bit-identical)
     nproc = pdist.process_count()
     shard = (pdist.process_index(), nproc) if nproc > 1 else None
-    seconds = {}
-    t0 = time.perf_counter()
-    if is_video(cfg.input):
-        src = None
-        obs = load_video_observations(cfg, args.calib, device, shard=shard)
-    else:
-        src = NpzSource(cfg.input)
-        obs = load_observations(src, cfg, device, shard=shard)
-    times, t_cl, q_cl, mask, cam, _amb, slot_ids = _resolve_recycling(obs)
-    _sync(device)
-    seconds["front_end"] = time.perf_counter() - t0
+    with device_trace(args.profile):
+        seconds = {}
+        t0 = time.perf_counter()
+        if is_video(cfg.input):
+            src = None
+            obs = load_video_observations(cfg, args.calib, device,
+                                          shard=shard)
+        else:
+            src = NpzSource(cfg.input)
+            obs = load_observations(src, cfg, device, shard=shard)
+        times, t_cl, q_cl, mask, cam, _amb, slot_ids = \
+            _resolve_recycling(obs)
+        _sync(device)
+        seconds["front_end"] = time.perf_counter() - t0
 
-    t = len(times)
-    gcfg = graph_config(cfg, t + 2, t_cl.shape[1], int(mask.sum()) + 8, cam,
-                        args.ba_rotations,
-                        torch.float64 if args.f64 else torch.float32)
-    t0 = time.perf_counter()
-    state = _ingest(gcfg, cfg, t_cl, mask, q_cl, args.ba_rotations, device)
-    _sync(device)
-    seconds["ingest"] = time.perf_counter() - t0
-    t1 = time.perf_counter()
-    state, cost = _solve(gcfg, state, cfg.batch_iters, args.distributed,
-                         local_devices)
-    cost = float(cost)
-    seconds["solve"] = time.perf_counter() - t1
-    dt = time.perf_counter() - t0
+        t = len(times)
+        gcfg = graph_config(cfg, t + 2, t_cl.shape[1], int(mask.sum()) + 8,
+                            cam, args.ba_rotations,
+                            torch.float64 if args.f64 else torch.float32)
+        t0 = time.perf_counter()
+        state = _ingest(gcfg, cfg, t_cl, mask, q_cl, args.ba_rotations,
+                        device, checkpoint_every=args.checkpoint_every,
+                        checkpoint=args.checkpoint, resume=args.resume,
+                        is_main=is_main)
+        _sync(device)
+        seconds["ingest"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        state, cost = _solve(gcfg, state, cfg.batch_iters,
+                             args.distributed, local_devices)
+        cost = float(cost)
+        seconds["solve"] = time.perf_counter() - t1
+        dt = time.perf_counter() - t0
     if not is_main:
         return None
+    if args.profile:
+        print(f"wrote {Path(args.profile) / 'trace.json'}")
     where = f"{pdist.device_count(local_devices)} devices x {nproc} " \
         "processes" if args.distributed else "1 device"
     print(f"batch solve: {t} poses, {int(state.f_count)} factors, "

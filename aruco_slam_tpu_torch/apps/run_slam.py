@@ -27,13 +27,18 @@ their landmarks; ``--load-map`` seeds the filter with a saved map;
 S·T frames of a chunk as one batch, or with ``--track-every K`` frame
 by frame over all S streams, staggered in ``--rescue-cohorts G``
 cohorts; the S filters in one batched step; per-stream output files).
+``--checkpoint-every N --checkpoint PATH`` writes (state, frames done,
+trajectory so far) every N frames (the MEKF scan runs in N-frame
+chunks), ``--resume PATH`` restarts from such a file (JAX's format:
+`utils/checkpoint.py`) after re-ingesting the input's observations;
+``--profile DIR`` writes a torch.profiler trace of the front end and the
+backend to DIR/trace.json. The fleet writes neither (as in JAX).
 ``--platform cuda`` is the default and raises when no card is present;
 the run never moves to the CPU in its place. Every flag of the JAX
 run_slam parses: the factor graph's tuning flags are accepted and
-unused on the MEKF paths, as there; the paths not ported yet (the
-viewers, checkpoints, ``--profile``) are refused with a "not ported
-yet" error, except that with several inputs the viewer flags print the
-JAX run_slam's note and the fleet is served.
+unused on the MEKF paths, as there; the viewers, not ported yet, are
+refused with a "not ported yet" error, except that with several inputs
+the viewer flags print the JAX run_slam's note and the fleet is served.
 """
 
 from __future__ import annotations
@@ -64,6 +69,9 @@ from aruco_slam_tpu_torch.ops import detect, pnp
 from aruco_slam_tpu_torch.parallel import dist as pdist
 from aruco_slam_tpu_torch.parallel.multi_slam import (
     batched_mekf_scan, stack_states)
+from aruco_slam_tpu_torch.utils.checkpoint import (
+    load_checkpoint, save_checkpoint)
+from aruco_slam_tpu_torch.utils.profiling import device_trace
 
 
 class RunResult(NamedTuple):
@@ -409,12 +417,25 @@ def _warn_dropped(dropped: np.ndarray, max_obs: int) -> None:
               "exceeded it); raise --max-obs")
 
 
+def _resume(resume, state):
+    """(state, frames done, trajectory rows so far) from a run_slam
+    checkpoint, loaded onto ``state``'s devices and dtypes."""
+    state, fdone, head = load_checkpoint(
+        resume, (state, np.int64(0), np.zeros((1, 7), np.float32)))
+    start = int(fdone)
+    print(f"resumed from {resume} at frame {start}")
+    return state, start, np.asarray(head)[:start]
+
+
 def run_mekf(cfg: SlamAppConfig, times, t_cl, q_cl, mask, cam,
              device: torch.device, with_rotations: bool = False,
              load_map_file=None, ambiguity=None, slot_ids=None,
-             reset=None):
+             reset=None, ckpt_every: int = 0, ckpt_path=None, resume=None):
     """Filter the whole sequence; returns (cam_traj (T, 7), active (C,),
-    landmark positions (C, 3), uncertainties (C, 3))."""
+    landmark positions (C, 3), uncertainties (C, 3)). With
+    ``ckpt_every`` N the scan runs in N-frame chunks and writes (state,
+    frames done, trajectory so far) to ``ckpt_path`` after each chunk
+    but the last; ``resume`` restarts from such a file."""
     max_obs = _auto_max_obs(cfg, mask, t_cl.shape[1])
     fcfg = _mekf_config(cfg, t_cl.shape[1], max_obs, with_rotations, cam)
     state = init_state(fcfg, device=device)
@@ -425,10 +446,23 @@ def run_mekf(cfg: SlamAppConfig, times, t_cl, q_cl, mask, cam,
         _dev(t_cl, device, f32), _dev(q_cl, device, f32),
         _dev(mask, device), _dev(ambiguity, device, f32),
         _dev(reset, device))
-    state, traj = mekf_scan(fcfg, state, seq)
+    tt = len(times)
+    cam_traj = np.zeros((tt, 7), np.float32)
+    start = 0
+    if resume:
+        state, start, head = _resume(resume, state)
+        cam_traj[:start] = head
+    step = max(ckpt_every or tt - start, 1)
+    for s in range(start, tt, step):
+        e = min(s + step, tt)
+        state, traj = mekf_scan(fcfg, state, FrameObservations(
+            *(None if a is None else a[s:e] for a in seq)))
+        cam_traj[s:e] = traj.cpu().numpy()
+        if ckpt_every and ckpt_path is not None and e < tt:
+            save_checkpoint(ckpt_path, (state, np.int64(e), cam_traj[:e]))
     _warn_dropped(state.dropped_obs.cpu().numpy(), fcfg.max_obs)
     unc = mekf_mod.landmark_uncertainties(fcfg, state).cpu().numpy()
-    return (traj.cpu().numpy(), state.active.cpu().numpy(),
+    return (cam_traj, state.active.cpu().numpy(),
             state.lm.cpu().numpy()[:, :3], unc[:, :3])
 
 
@@ -495,15 +529,19 @@ def graph_config(cfg: SlamAppConfig, max_poses: int, max_landmarks: int,
 
 def run_factorgraph(cfg: SlamAppConfig, times, t_cl, q_cl, mask, cam,
                     device: torch.device, with_rotations: bool = False,
-                    dtype: torch.dtype = torch.float32):
+                    dtype: torch.dtype = torch.float32, ckpt_every: int = 0,
+                    ckpt_path=None, resume=None):
     """The online factor graph over the whole sequence: per frame
     `add_frame` and a ``cfg.window``-pose `optimize_window`; with a pose
     budget shorter than the run, the oldest half of the poses is
     marginalized whenever the graph is full. The pose count is tracked
     on the host (the graph's is deterministic), so the frame loop reads
     nothing back: the trajectory is read once at the end, then the
-    landmark covariances. Returns (cam_traj (T, 7), active (L,),
-    landmark positions (L, 3), uncertainties (L, D))."""
+    landmark covariances. With ``ckpt_every`` N, (state, frames done,
+    trajectory so far) goes to ``ckpt_path`` every N frames but after
+    the last; ``resume`` restarts from such a file (the pose count from
+    its ``num_poses``). Returns (cam_traj (T, 7), active (L,), landmark
+    positions (L, 3), uncertainties (L, D))."""
     t = len(times)
     budget = cfg.pose_budget
     if budget and budget < t + 2:
@@ -521,9 +559,19 @@ def run_factorgraph(cfg: SlamAppConfig, times, t_cl, q_cl, mask, cam,
     t_cl_d, mask_d = _dev(t_cl, device), _dev(mask, device)
     q_cl_d = _dev(q_cl, device) if with_rotations else None
     num, drop = 1, max_poses // 2
+    start, head = 0, np.zeros((0, 7), np.float32)
+    if resume:
+        state, start, head = _resume(resume, state)
+        num = int(state.num_poses)
     poses = []
+
+    def materialize():
+        tail = torch.stack(poses).cpu().numpy() if poses \
+            else np.zeros((0, 7))
+        return np.concatenate([head, tail.astype(np.float32)])
+
     t0 = time.perf_counter()
-    for i in range(t):
+    for i in range(start, t):
         state = add_frame(gcfg, state, t_cl_d[i], mask_d[i],
                           None if q_cl_d is None else q_cl_d[i])
         num = min(num + 1, max_poses)
@@ -534,9 +582,15 @@ def run_factorgraph(cfg: SlamAppConfig, times, t_cl, q_cl, mask, cam,
         if budget and num >= max_poses - 1:
             state = marginalize_poses(gcfg, state, drop)
             num = max(num - drop, 1)
-    cam_traj = torch.stack(poses).cpu().numpy().astype(np.float32)
+        if ckpt_every and ckpt_path and (i + 1) % ckpt_every == 0 \
+                and i + 1 < t:
+            save_checkpoint(ckpt_path, (state, np.int64(i + 1),
+                                        materialize()))
+    cam_traj = materialize()
     dt = time.perf_counter() - t0
-    print(f"factorgraph online: {t} frames in {dt:.3f}s ({t / dt:.1f} fps)")
+    done = t - start
+    print(f"factorgraph online: {done} frames in {dt:.3f}s "
+          f"({done / dt:.1f} fps)")
     unc = torch.diagonal(landmark_covariances(gcfg, state), dim1=-2, dim2=-1)
     return (cam_traj, state.lm_active.cpu().numpy(), state.lm.cpu().numpy(),
             unc.cpu().numpy())
@@ -767,7 +821,7 @@ def _parser() -> argparse.ArgumentParser:
                    default=dflt.odom_sigma_rot)
     p.add_argument("--huber-delta", type=float, default=dflt.huber_delta)
     p.add_argument("--ba-rotations", action="store_true")
-    # the JAX run_slam's paths not ported yet: refused in main; the
+    # the JAX run_slam's viewers, not ported yet: refused in main; the
     # modifiers of refused flags are accepted
     p.add_argument("--viz-2d", action="store_true")
     p.add_argument("--viz-3d", action="store_true")
@@ -776,11 +830,56 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--viz-3d-renderer", default=dflt.viz_3d_renderer,
                    choices=["mpl", "fast"])
     p.add_argument("--export-video", action="store_true")
-    p.add_argument("--checkpoint-every", type=int, default=0)
-    p.add_argument("--checkpoint", default="outputs/checkpoint.npz")
-    p.add_argument("--resume", default=None)
-    p.add_argument("--profile", default=None, metavar="DIR")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="save a resumable checkpoint every N frames "
+                        "(0 = off)")
+    p.add_argument("--checkpoint", default="outputs/checkpoint.npz",
+                   help="checkpoint file path")
+    p.add_argument("--resume", default=None,
+                   help="resume a killed run from a checkpoint; "
+                        "observations are re-ingested from the input")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the run to "
+                        "DIR/trace.json")
     return p
+
+
+def _run_single(cfg: SlamAppConfig, args, device: torch.device):
+    """One input through the front end and the backend: (stage seconds,
+    the npz source or None, (times, mask, slot_ids, cam_traj, active,
+    landmarks, uncertainties))."""
+    seconds = {}
+    t0 = time.perf_counter()
+    if is_video(cfg.input):
+        src = None
+        obs = load_video_observations(cfg, args.calib, device)
+    else:
+        src = NpzSource(cfg.input)
+        seconds["load"] = time.perf_counter() - t0
+        obs = load_observations(src, cfg, device)
+    _sync(device)
+    seconds["front_end"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ckpt = dict(ckpt_every=args.checkpoint_every, ckpt_path=args.checkpoint,
+                resume=args.resume)
+    if cfg.filter == "factorgraph":
+        # the graph keys landmarks by column and has no reset: recycled
+        # slots become fresh columns (the MEKF consumes `reset` itself)
+        times, t_cl, q_cl, mask, cam, amb, slot_ids = \
+            _resolve_recycling(obs)
+        out = run_factorgraph(cfg, times, t_cl, q_cl, mask, cam, device,
+                              with_rotations=args.ba_rotations, **ckpt)
+    else:
+        times, t_cl, q_cl, mask, cam, amb, slot_ids, reset, _ids = obs
+        out = run_mekf(
+            cfg, times, t_cl, q_cl, mask, cam, device,
+            with_rotations=cfg.filter == "mekf_rotations",
+            load_map_file=args.load_map, ambiguity=amb, slot_ids=slot_ids,
+            reset=reset, **ckpt)
+    _sync(device)
+    seconds["filter"] = time.perf_counter() - t0
+    return seconds, src, (times, mask, slot_ids, *out)
 
 
 def main(argv=None) -> RunResult | list[RunResult]:
@@ -807,10 +906,7 @@ def main(argv=None) -> RunResult | list[RunResult]:
                              f"divide streams={len(inputs)}")
     for flag, on in (("--viz-2d", args.viz_2d and not fleet),
                      ("--viz-3d", args.viz_3d and not fleet),
-                     ("--display", args.display and not fleet),
-                     ("--checkpoint-every", args.checkpoint_every),
-                     ("--resume", args.resume),
-                     ("--profile", args.profile)):
+                     ("--display", args.display and not fleet)):
         if on:
             _not_ported(flag)
     device = resolve_device(args.platform)
@@ -839,36 +935,11 @@ def main(argv=None) -> RunResult | list[RunResult]:
                   "fleet path writes trajectories/maps only")
         return run_multi_stream(cfg, inputs, args.calib, device)
 
-    seconds = {}
-    t0 = time.perf_counter()
-    if is_video(cfg.input):
-        src = None
-        obs = load_video_observations(cfg, args.calib, device)
-    else:
-        src = NpzSource(cfg.input)
-        seconds["load"] = time.perf_counter() - t0
-        obs = load_observations(src, cfg, device)
-    _sync(device)
-    seconds["front_end"] = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    if cfg.filter == "factorgraph":
-        # the graph keys landmarks by column and has no reset: recycled
-        # slots become fresh columns (the MEKF consumes `reset` itself)
-        times, t_cl, q_cl, mask, cam, amb, slot_ids = \
-            _resolve_recycling(obs)
-        cam_traj, active, lm, unc = run_factorgraph(
-            cfg, times, t_cl, q_cl, mask, cam, device,
-            with_rotations=args.ba_rotations)
-    else:
-        times, t_cl, q_cl, mask, cam, amb, slot_ids, reset, _ids = obs
-        cam_traj, active, lm, unc = run_mekf(
-            cfg, times, t_cl, q_cl, mask, cam, device,
-            with_rotations=cfg.filter == "mekf_rotations",
-            load_map_file=args.load_map, ambiguity=amb, slot_ids=slot_ids,
-            reset=reset)
-    _sync(device)
-    seconds["filter"] = time.perf_counter() - t0
+    with device_trace(args.profile):
+        seconds, src, (times, mask, slot_ids, cam_traj, active, lm,
+                       unc) = _run_single(cfg, args, device)
+    if args.profile:
+        print(f"wrote {Path(args.profile) / 'trace.json'}")
     tt = len(times)
     stage = "graph" if cfg.filter == "factorgraph" else "filter"
     print(f"front end: {tt} frames in {seconds['front_end']:.3f}s; "

@@ -1,9 +1,11 @@
 """Synthetic grayscale frame renderer (numpy + the port's camera).
 
-Counterpart of aruco_slam_tpu/bench/render.py `render_sequence`:
+Counterpart of aruco_slam_tpu/bench/render.py: `render_sequence`
 rasterizes each scene marker (payload and black border) into the frame
-by inverse homography warping through the distorted camera. Host-side
-fixture code for tests and `chip_smoke.py`.
+by inverse homography warping through the distorted camera;
+`charuco_bitmap` and `render_plane_views` draw a ChArUco calibration
+board and its camera views. Host-side fixture code for tests,
+`apps/make_synthetic.py` and `chip_smoke.py`.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from aruco_slam_tpu_torch.bench.synthetic import (
     Scene, Trajectory, _quat_conj, _quat_mul, _quat_rotate,
     canonical_corners, project_np)
 from aruco_slam_tpu_torch.core import camera as cam_mod
+from aruco_slam_tpu_torch.core import quaternion as quat_mod
 from aruco_slam_tpu_torch.ops import dictionary as dict_mod
 
 BACKGROUND = 178  # light gray
@@ -104,3 +107,84 @@ def render_sequence(scene: Scene, traj: Trajectory, cam,
                                  cam, norm_map, d, marker_ids=marker_ids,
                                  background=background)
     return frames
+
+
+def charuco_bitmap(board, d: dict_mod.Dictionary,
+                   px_per_square: int = 64) -> np.ndarray:
+    """Rasterize a ChArUco board (ops/calibrate.CharucoBoard) to a
+    uint8 bitmap; row 0 = top of the board (max board y)."""
+    sx, sy = board.squares_x, board.squares_y
+    pps = px_per_square
+    bmp = np.empty((sy * pps, sx * pps), np.uint8)
+    for gy in range(sy):
+        for gx in range(sx):
+            black = (gx + (sy - 1 - gy)) % 2 == 0  # printed TL black
+            r0 = (sy - 1 - gy) * pps
+            bmp[r0:r0 + pps, gx * pps:(gx + 1) * pps] = 0 if black else 255
+    # markers with their black borders into the white squares
+    cells = d.marker_bits + 2
+    mpx = max(int(round(board.marker_len / board.square_len * pps)), cells)
+    off = (pps - mpx) // 2
+    idx = (np.arange(mpx) * cells) // mpx
+    for mi, bid in enumerate(board.layout.ids):
+        center = board.layout.corners[mi].mean(0)
+        gx = int(center[0] // board.square_len)
+        gy = int(center[1] // board.square_len)
+        pattern = np.zeros((cells, cells), np.uint8)
+        pattern[1:-1, 1:-1] = d.bits[bid % d.num_markers]
+        r0 = (sy - 1 - gy) * pps + off
+        c0 = gx * pps + off
+        bmp[r0:r0 + mpx, c0:c0 + mpx] = pattern[np.ix_(idx, idx)] * 255
+    return bmp
+
+
+def render_plane_views(bitmap: np.ndarray, extent: tuple[float, float],
+                       cam, view_poses: np.ndarray,
+                       image_size=(1280, 720)) -> np.ndarray:
+    """Render a planar bitmap (board frame: x right, y up, z out; origin
+    at the bottom-left, physical size ``extent`` = (ex, ey)) into camera
+    views (V, H, W) uint8. view_poses: (V, 6) rotvec + tvec with p_cam =
+    R p_board + t (the ops/calibrate pose convention)."""
+    w, h = image_size
+    ex, ey = extent
+    bh, bw = bitmap.shape
+    norm_map = _undistort_map(cam, w, h)
+    views = np.empty((len(view_poses), h, w), np.uint8)
+    for i, pose in enumerate(np.asarray(view_poses, np.float64)):
+        r = quat_mod.to_matrix(quat_mod.from_rotvec(
+            torch.from_numpy(pose[:3]))).numpy()
+        t = pose[3:]
+        exv, eyv, org = r[:, 0], r[:, 1], t
+        img = np.full((h, w), BACKGROUND, np.uint8)
+        views[i] = img
+        # the pattern is on the board's +z face: visible only when the
+        # normal points toward the camera
+        if np.dot(r[:, 2], org) >= 0:
+            continue
+        corners3 = np.array([[0, 0, 0], [ex, 0, 0], [ex, ey, 0],
+                             [0, ey, 0]]) @ r.T + t
+        if (corners3[:, 2] <= 0.05).any():
+            continue
+        px = project_np(cam, corners3)
+        x0 = int(max(np.floor(px[:, 0].min()) - 2, 0))
+        x1 = int(min(np.ceil(px[:, 0].max()) + 3, w))
+        y0 = int(max(np.floor(px[:, 1].min()) - 2, 0))
+        y1 = int(min(np.ceil(px[:, 1].max()) + 3, h))
+        if x1 <= x0 or y1 <= y0:
+            continue
+        nm = norm_map[y0:y1, x0:x1]
+        rh, rw = nm.shape[:2]
+        rays = np.concatenate([nm, np.ones((rh, rw, 1))], -1)
+        a_mat = np.empty((rh, rw, 3, 3))
+        a_mat[..., :, 0] = exv
+        a_mat[..., :, 1] = eyv
+        a_mat[..., :, 2] = -rays
+        rhs = np.broadcast_to(-org, (rh, rw, 3))
+        sol = np.linalg.solve(a_mat, rhs[..., None])[..., 0]
+        a, b, depth = sol[..., 0], sol[..., 1], sol[..., 2]
+        inside = (a >= 0) & (a < ex) & (b >= 0) & (b < ey) & (depth > 0)
+        cx = np.clip((a / ex * bw).astype(np.int64), 0, bw - 1)
+        cy = np.clip(((ey - b) / ey * bh).astype(np.int64), 0, bh - 1)
+        region = views[i, y0:y1, x0:x1]
+        region[inside] = bitmap[cy, cx][inside]
+    return views

@@ -1,1 +1,1 @@
-"""Quaternion and pinhole-camera math on tensors."""
+"""Quaternion, SE(3) and pinhole-camera math on tensors."""

@@ -1,8 +1,8 @@
 """Pinhole camera with 5-term radial-tangential distortion, on tensors.
 
 Counterpart of aruco_slam_tpu/core/camera.py (OpenCV's model, with
-distortion coefficients ordered k1, k2, p1, p2, k3). `undistort_image`
-and `bilinear_sample` are not ported yet.
+distortion coefficients ordered k1, k2, p1, p2, k3), with the image
+remap `undistort_image` (cv2.undistort's) and its `bilinear_sample`.
 """
 
 from __future__ import annotations
@@ -90,3 +90,47 @@ def pixel_to_ray(cam: CameraModel, uv: torch.Tensor,
                  iters: int = 8) -> torch.Tensor:
     """Distorted pixel (..., 2) -> undistorted normalized coords."""
     return undistort(cam, pixel_to_normalized(cam, uv), iters=iters)
+
+
+def undistort_image(cam: CameraModel, img: torch.Tensor) -> torch.Tensor:
+    """Undistort a grayscale image (H, W) under ``cam`` (cv2.undistort's
+    remap): every output pixel of the ideal pinhole grid takes the
+    bilinear sample at its distorted source position, the forward
+    `distort` of its normalized coordinates. Integer images are rounded
+    (half to even, as the JAX function), not truncated; a pixel whose
+    source lies outside the frame is 0. Runs on the image's device; the
+    sample coordinates are float32, or float64 with a float64 camera
+    (as JAX promotes them)."""
+    h, w = img.shape
+    dev = img.device
+    cam = cam.to(device=dev)
+    dt = torch.promote_types(torch.float32, cam.fx.dtype)
+    vv, uu = torch.meshgrid(torch.arange(h, dtype=dt, device=dev),
+                            torch.arange(w, dtype=dt, device=dev),
+                            indexing="ij")
+    src = normalized_to_pixel(cam, distort(cam, pixel_to_normalized(
+        cam, torch.stack([uu, vv], -1))))
+    x, y = src[..., 0], src[..., 1]
+    inside = (x >= 0) & (x <= w - 1) & (y >= 0) & (y <= h - 1)
+    out = bilinear_sample(img.to(torch.float32), x, y)
+    if not torch.is_floating_point(img):
+        out = torch.round(out)  # truncation would bias ~0.5 level dark
+    return torch.where(inside, out, 0.0).to(img.dtype)
+
+
+def bilinear_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor
+                    ) -> torch.Tensor:
+    """Bilinear sample of a single-channel image (H, W) at float
+    coordinates (clamped to the valid interior)."""
+    h, w = img.shape
+    x0 = torch.clamp(torch.floor(x).to(torch.int32), 0, w - 2)
+    y0 = torch.clamp(torch.floor(y).to(torch.int32), 0, h - 2)
+    fx = torch.clamp(x - x0, 0.0, 1.0)
+    fy = torch.clamp(y - y0, 0.0, 1.0)
+    x0, y0 = x0.long(), y0.long()
+    v00 = img[y0, x0]
+    v01 = img[y0, x0 + 1]
+    v10 = img[y0 + 1, x0]
+    v11 = img[y0 + 1, x0 + 1]
+    return ((1 - fy) * ((1 - fx) * v00 + fx * v01)
+            + fy * ((1 - fx) * v10 + fx * v11))

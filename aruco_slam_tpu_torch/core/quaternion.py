@@ -131,3 +131,26 @@ def to_rotvec(q: torch.Tensor) -> torch.Tensor:
     small = sin_sq < 1e-12
     k = torch.where(small, 2.0 + sin_sq / 3.0, angle / sin_half)
     return v * k
+
+
+def from_euler_xyz(angles: torch.Tensor) -> torch.Tensor:
+    """Extrinsic x-y-z Euler angles -> quaternion (scipy's
+    ``Rotation.from_euler("xyz", a)``: R = Rz(c) Ry(b) Rx(a))."""
+    a, b, c = angles.unbind(-1)
+    zero = torch.zeros_like(a)
+    qx = from_rotvec(torch.stack([a, zero, zero], dim=-1))
+    qy = from_rotvec(torch.stack([zero, b, zero], dim=-1))
+    qz = from_rotvec(torch.stack([zero, zero, c], dim=-1))
+    return multiply(qz, multiply(qy, qx))
+
+
+def apply_small_angle(q: torch.Tensor, err: torch.Tensor) -> torch.Tensor:
+    """MEKF multiplicative correction: normalize([1, err/2]) ⊗ q."""
+    dq = torch.cat([torch.ones_like(err[..., :1]), 0.5 * err], dim=-1)
+    return normalize(multiply(dq, q))
+
+
+def angle_between(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Geodesic angle (radians) between two unit quaternions."""
+    dot = torch.abs(torch.sum(a * b, dim=-1))
+    return 2.0 * torch.arccos(torch.clamp(dot, 0.0, 1.0))

@@ -10,12 +10,16 @@ the same bytes (integer BT.601 weights, floored), which
 tests/test_torch_core.py checks on the imageio route with and without
 that library. `PrefetchingFrameSource` decodes ahead on a background
 thread into a bounded queue, where the JAX package feeds a native ring.
+`write_png_gray` writes 8-bit grayscale PNGs with the standard library
+alone (the calibration previews; `read_png_gray` reads them back).
 """
 
 from __future__ import annotations
 
 import queue
+import struct
 import threading
+import zlib
 from pathlib import Path
 from typing import NamedTuple
 
@@ -268,3 +272,58 @@ def load_map(filename):
         uncs.append([float(v) for v in lines[i + 2].split(",")])
     return (np.asarray(ids, np.int32), np.asarray(poss),
             np.asarray(uncs))
+
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def write_png_gray(path, img: np.ndarray) -> None:
+    """Write an (H, W) uint8 image as an 8-bit grayscale PNG (every row
+    unfiltered, one zlib stream)."""
+    img = np.ascontiguousarray(img)
+    if img.ndim != 2 or img.dtype != np.uint8:
+        raise ValueError(f"need an (H, W) uint8 image, got {img.dtype} "
+                         f"{img.shape}")
+    h, w = img.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img], axis=1)
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(
+        _PNG_SIGNATURE
+        + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+        + _png_chunk(b"IDAT", zlib.compress(rows.tobytes()))
+        + _png_chunk(b"IEND", b""))
+
+
+def read_png_gray(path) -> np.ndarray:
+    """Read back what `write_png_gray` writes: an 8-bit grayscale,
+    non-interlaced PNG whose rows are unfiltered. Anything else
+    raises ValueError (this is not a general decoder)."""
+    data = Path(path).read_bytes()
+    if not data.startswith(_PNG_SIGNATURE):
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, head = len(_PNG_SIGNATURE), [], None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        if zlib.crc32(tag + body) & 0xFFFFFFFF != crc:
+            raise ValueError(f"{path}: bad CRC in chunk {tag!r}")
+        if tag == b"IHDR":
+            head = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        pos += 12 + n
+    if head is None or head[2:] != (8, 0, 0, 0, 0):
+        raise ValueError(f"{path}: not an 8-bit grayscale PNG ({head})")
+    w, h = head[:2]
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    rows = rows.reshape(h, w + 1)
+    if rows[:, 0].any():
+        raise ValueError(f"{path}: filtered rows are not supported")
+    return rows[:, 1:].copy()

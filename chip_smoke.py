@@ -27,7 +27,9 @@ non-zero, and no result line is printed):
                 launches; P' exactly symmetric; which Newton–Schulz
                 path the C entry point took), B4 stencil-only labeling
                 (also forced to at most 8, 6 and 4 rounds a launch),
-                B5 patch-fed refinement. Times: `ms` and `plain_ms` are
+                B5 patch-fed refinement (refine_corners' 12,288 patches
+                and the calibration CLI's 24 and 12 x 24 chessboard
+                corners). Times: `ms` and `plain_ms` are
                 the median of one call on an idle card (host time
                 between launches included), `device_ms` and
                 `plain_device_ms` device time (20 calls queued behind a
@@ -120,9 +122,36 @@ non-zero, and no result line is printed):
                 events an iteration and busy share traced on rank 0,
                 the ranks' results bit-equal, f64 within 1e-6 m of the
                 unsharded.
+19. undistort  — `core/camera.undistort_image` on the card against the
+                CPU at 1280x720 and 1920x1080 (within one gray level),
+                ms a call (run with the kernels, before the paths).
+20. calibrate  — `apps.calibrate.main` at the reference's configuration
+                (7x5 ChArUco, 30/15 mm, AprilTag 36h11) on 12 rendered
+                1280x720 views (tests/test_calibrate.py's camera and view
+                recipe, seed 0), `--iters 60 --preview 2`: exactly one
+                B5 launch and the detector's B1 and B2, the intrinsics
+                within tests/test_calibrate.py's tolerances, the previews
+                read back by `io.read_png_gray`, cold and warm stage
+                seconds, the LM's device events an iteration and busy
+                share; the same CLI on the CPU within 1e-4 (camera
+                matrix, relative); `calibrate` on the grid board's
+                correspondences, the card against the CPU at f64 within
+                1e-9.
+21. checkpoint — `run_slam --checkpoint-every 8` on the main frames and a
+                run resumed from its last checkpoint (frame 24):
+                bit-identical for mekf and mekf_rotations (B3 once a
+                resumed frame), within 1e-6 m for the factor graph and
+                run_offline's ingest.
+22. profile    — `run_slam --profile DIR`: DIR/trace.json holds device
+                events of B1, B2 and B3, the trajectory bit-identical.
+23. make-synthetic — the default pose-level bundle (300 frames, 12
+                markers) through run_slam on the card (ATE), and
+                `--images --video-rate --frames 8` bit-identical to this
+                script's render of the same orbit.
 
 The line before the last is {"kernels": [...]} (each with its launches
-on the main path, or on its own path for B4 and B5, and its launches
+on the main path, or on its own path for B4 and B5 (the calibration
+CLI's, whose shapes B5's times are at), and its launches
 per 32-frame chunk on every path: the fleet-ba runs hold four
 sequences of one chunk each, the dist ranks one 16-frame chunk each);
 the last line is {"ok": true, "device": {...}}. Imports nothing of JAX
@@ -189,6 +218,15 @@ DIST_RANKS = 2        # the [dist] phase's processes (Gloo on the one card)
 # each rank owns one chunk (run_slam._observations_from_frames_sharded)
 DIST_CHUNK = -(-CHUNK // DIST_RANKS)
 PROFILE_ITERS = 5     # LM iterations traced for events and busy share
+# calibration: tests/test_calibrate.py's camera, views and tolerances
+CALIB_VIEWS = 12
+CALIB_SIZE = (1280, 720)
+CALIB_K = ((900.0, 0.0, 640.0), (0.0, 905.0, 360.0), (0.0, 0.0, 1.0))
+CALIB_DIST = (0.08, -0.22, 0.001, 0.002, 0.11)
+CALIB_ITERS = 60
+CALIB_TOL = 1e-4       # the CLI's camera matrix, card against CPU, relative
+CALIB_GRID_TOL = 1e-9  # calibrate() at f64, card against CPU, relative
+CKPT_EVERY = CHUNK // 4  # the [checkpoint] runs' --checkpoint-every
 # the detector's subpixel schedule, the tracker's three pulls and
 # detect.refine_corners' default
 DETECTOR_SCHED = ((6, 6), (3, 4))
@@ -1956,6 +1994,424 @@ def phase_dist(npz: Path, tmp: Path, ingested, f64_ref, smi: str) -> dict:
             "large_f32_s": secs, "obs_identical": same}
 
 
+def calibration_views(n_views: int = CALIB_VIEWS, seed: int = SEED):
+    """tests/test_calibrate.py make_charuco_views' views of the
+    reference's board (7x5 squares, 30/15 mm, AprilTag 36h11, 96 px a
+    square) at CALIB_SIZE under CALIB_K / CALIB_DIST: (board, the (V, H,
+    W) uint8 views, each view's (24, 2) true chessboard-corner pixels)."""
+    import numpy as np
+    from scipy.spatial.transform import Rotation
+    from aruco_slam_tpu_torch.bench import render
+    from aruco_slam_tpu_torch.bench.synthetic import project_np
+    from aruco_slam_tpu_torch.core import camera as cam_mod
+    from aruco_slam_tpu_torch.ops import calibrate as cal
+    from aruco_slam_tpu_torch.ops import dictionary
+    board = cal.charuco_board(7, 5, 0.03, 0.015)
+    cam = cam_mod.CameraModel.from_matrix(np.asarray(CALIB_K),
+                                          np.asarray(CALIB_DIST))
+    rng = np.random.default_rng(seed)
+    ex, ey = 7 * 0.03, 5 * 0.03
+    center = np.array([ex / 2, ey / 2, 0.0])
+    flip = Rotation.from_euler("x", np.pi).as_matrix()  # face the camera
+    poses, chess = [], []
+    pts3 = np.concatenate([board.chess_pts, np.zeros((24, 1))], -1)
+    for _ in range(n_views):
+        rot = Rotation.from_euler(
+            "xyz", rng.uniform(-0.35, 0.35, 3)).as_matrix() @ flip
+        dist = rng.uniform(0.30, 0.42)
+        t = np.array([rng.uniform(-0.02, 0.02),
+                      rng.uniform(-0.02, 0.02), dist]) - rot @ center
+        poses.append(np.concatenate(
+            [Rotation.from_matrix(rot).as_rotvec(), t]))
+        chess.append(project_np(cam, pts3 @ rot.T + t))
+    bmp = render.charuco_bitmap(board, dictionary.load("apriltag_36h11"),
+                                px_per_square=96)
+    views = render.render_plane_views(bmp, (ex, ey), cam, np.asarray(poses),
+                                      CALIB_SIZE)
+    return board, views, np.asarray(chess)
+
+
+def grid_views(n_views: int = CALIB_VIEWS, noise_px: float = 0.1,
+               seed: int = SEED):
+    """tests/test_calibrate.py make_views' correspondences, projected by
+    the port's camera: the 4x3 grid board from tilted poses, (board,
+    corners (V, 12, 4, 2), mask (V, 12))."""
+    import numpy as np
+    from scipy.spatial.transform import Rotation
+    from aruco_slam_tpu_torch.bench.synthetic import project_np
+    from aruco_slam_tpu_torch.core import camera as cam_mod
+    from aruco_slam_tpu_torch.ops import calibrate as cal
+    board = cal.grid_board(4, 3, marker_size=0.05, gap=0.015)
+    cam = cam_mod.CameraModel.from_matrix(np.asarray(CALIB_K),
+                                          np.asarray(CALIB_DIST))
+    rng = np.random.default_rng(seed)
+    m = len(board.ids)
+    pts_board = np.concatenate([board.corners, np.zeros((m, 4, 1))], -1)
+    center = pts_board.reshape(-1, 3).mean(0)
+    w, h = CALIB_SIZE
+    corners = np.zeros((n_views, m, 4, 2))
+    mask = np.zeros((n_views, m), bool)
+    for i in range(n_views):
+        r = Rotation.from_euler("xyz", rng.uniform(-0.45, 0.45, 3)
+                                ).as_matrix()
+        t = np.array([rng.uniform(-0.05, 0.05), rng.uniform(-0.05, 0.05),
+                      rng.uniform(0.35, 0.7)])
+        pts_cam = (pts_board - center) @ r.T + t
+        px = project_np(cam, pts_cam)
+        px += rng.normal(scale=noise_px, size=px.shape)
+        ok = ((pts_cam[..., 2] > 0.05).all(-1)
+              & (px[..., 0] > 5).all(-1) & (px[..., 0] < w - 5).all(-1)
+              & (px[..., 1] > 5).all(-1) & (px[..., 1] < h - 5).all(-1))
+        corners[i][ok] = px[ok]
+        mask[i] = ok
+    return board, corners, mask
+
+
+def _b5_calibration(views, chess, rng, dev) -> list:
+    """B5 at the calibration CLI's shapes: the 24 chessboard corners of
+    one view and of all CALIB_VIEWS views (the CLI's one batched call),
+    seeded up to 1.5 px off the true corners on the float32 views, as
+    the CLI gathers them."""
+    import numpy as np
+    import torch
+    from aruco_slam_tpu_torch.ops import cuda_subpix
+    rad, _ = cuda_subpix.schedule_params(REFINE_SCHED)
+    p = 2 * rad + 1
+    img = torch.from_numpy(views).to(dev).to(torch.float32)
+    seeds = chess + rng.uniform(-1.5, 1.5, chess.shape)
+    pts = torch.as_tensor(seeds, dtype=torch.float32, device=dev)
+    cases = []
+    for v in (1, len(views)):
+        patches, cx0, cy0 = cuda_subpix.gather_patches(img[:v], pts[:v], rad)
+        c0 = cuda_subpix.start_offsets(pts[:v], cx0, cy0, rad)
+        patches, c0 = patches.reshape(-1, p, p), c0.reshape(-1, 2)
+        got = cuda_subpix.refine_offsets(patches, c0, REFINE_SCHED)
+        want = cuda_subpix.refine_offsets_plain(patches, c0, REFINE_SCHED)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        t = timings(lambda: cuda_subpix.refine_offsets(patches, c0,
+                                                       REFINE_SCHED),
+                    lambda: cuda_subpix.refine_offsets_plain(patches, c0,
+                                                             REFINE_SCHED))
+        b_ms, b_by = _subpix_bound(patches.shape[0], REFINE_SCHED, 4)
+        log(f"[B5] calibration: refine_offsets {tuple(patches.shape)} "
+            f"({v} view(s) x 24 chessboard corners) schedule "
+            f"{REFINE_SCHED}: max |kernel - plain| {err:.3e} px (tol "
+            f"{B5_TOL}); {_fmt_t(t)}, bound {b_ms:.6f} ms ({b_by})")
+        if not np.isfinite(err) or err > B5_TOL:
+            raise AssertionError(f"B5 differs from its plain version at "
+                                 f"{v} x 24 patches: {err}")
+        cases.append({"shape": list(patches.shape), "max_abs_err": err, **t,
+                      "bound_ms": b_ms, "bound_by": b_by})
+    return cases
+
+
+def phase_undistort(images, cams, dev, smi: str) -> None:
+    """core/camera.undistort_image on the card against the CPU, at each
+    image's size: within one gray level (a rounding tie at .5 may fall
+    either way); ms a call on the card."""
+    import torch
+    from aruco_slam_tpu_torch.core import camera as cam_mod
+    for img, cam in zip(images, cams):
+        h, w = img.shape
+        cpu_img = torch.from_numpy(img)
+        t0 = time.perf_counter()
+        want = cam_mod.undistort_image(cam, cpu_img)
+        cpu_s = time.perf_counter() - t0
+        cam_d, img_d = cam.to(device=dev), cpu_img.to(dev)
+        got = cam_mod.undistort_image(cam_d, img_d).cpu()
+        diff = (got.int() - want.int()).abs()
+        off = int((diff > 0).sum())
+        ms = call_ms(lambda: cam_mod.undistort_image(cam_d, img_d))
+        log(f"[undistort] {w}x{h}: max |card - cpu| {int(diff.max())} gray "
+            f"levels, {off} of {img.size} pixels off by one; {ms:.3f} ms a "
+            f"call on the card ({1e3 * cpu_s:.1f} ms one call on the host "
+            f"CPU) on {smi}")
+        if int(diff.max()) > 1:
+            raise AssertionError(f"undistort_image {w}x{h}: the card is "
+                                 f"{int(diff.max())} levels off the CPU")
+
+
+def _max_rel(got, want) -> float:
+    """The largest relative difference over the nonzero entries of
+    ``want``."""
+    import numpy as np
+    nz = want != 0
+    return float((np.abs(got - want)[nz] / np.abs(want[nz])).max())
+
+
+CALIB_ARGS = ["--board", "charuco", "--grid", "7x5", "--square-size",
+              "0.03", "--marker-size", "0.015", "--dict", "apriltag_36h11",
+              "--iters", str(CALIB_ITERS), "--preview", "2"]
+
+
+def phase_calibrate(tmp: Path, board, views, dev, smi: str) -> dict:
+    """The calibration CLI at the reference's configuration on the card,
+    cold (its launches: exactly one B5, the detector's B1 and B2; the
+    intrinsics within tests/test_calibrate.py's tolerances; the previews
+    read back) and warm (stage seconds; the LM's device events and busy
+    share), against the same CLI on the CPU; then `calibrate` on the
+    grid board's correspondences, the card against the CPU at f64."""
+    import numpy as np
+    import torch
+    from aruco_slam_tpu_torch.apps import calibrate as cli
+    from aruco_slam_tpu_torch.io import read_png_gray, save_npz
+    from aruco_slam_tpu_torch.ops import calibrate as cal
+    npz = tmp / "calib_views.npz"
+    save_npz(npz, images=views)
+    argv = ["--images", str(npz), *CALIB_ARGS]
+    _reset_counts()
+    cold = cli.main(argv + ["--platform", PLATFORM,
+                            "--out", str(tmp / "calib")])
+    launches = _counts()
+    k = cold.result.camera_matrix
+    log(f"[calibrate] {len(views)} views {CALIB_SIZE[0]}x{CALIB_SIZE[1]}: "
+        f"launches in the run: {launches}; fx {k[0, 0]:.3f} fy "
+        f"{k[1, 1]:.3f} cx {k[0, 2]:.3f} cy {k[1, 2]:.3f}, dist "
+        f"{np.round(cold.result.dist_coeffs, 5).tolist()}, rms "
+        f"{cold.result.rms_px:.4f} px; cold stage seconds {cold.seconds}")
+    if launches["refine_offsets"] != 1:
+        raise AssertionError(f"calibrate: {launches['refine_offsets']} B5 "
+                             "launches (one batched call expected)")
+    _require(launches, "calibrate path", ("flood_scan_labels",
+                                          "refine_corners"))
+    ok = (abs(k[0, 0] / CALIB_K[0][0] - 1) <= 0.015
+          and abs(k[1, 1] / CALIB_K[1][1] - 1) <= 0.015
+          and abs(k[0, 2] - CALIB_K[0][2]) <= 6
+          and abs(k[1, 2] - CALIB_K[1][2]) <= 6
+          and cold.result.rms_px < 0.6)
+    if not ok:
+        raise AssertionError(f"calibrate: intrinsics {k.tolist()}, rms "
+                             f"{cold.result.rms_px} outside the tolerances")
+    for path in cold.previews:
+        im = read_png_gray(path)
+        if im.shape != views[0].shape or not im.max() > 100:
+            raise AssertionError(f"preview {path.name}: {im.shape}, max "
+                                 f"{im.max()}")
+    log(f"[calibrate] previews {[p.name for p in cold.previews]} decode "
+        f"({views[0].shape[1]}x{views[0].shape[0]})")
+
+    captured = []
+    real = cal._lm_calibrate
+
+    def capture(*args, **kw):
+        captured.append((args, kw))
+        return real(*args, **kw)
+
+    cal._lm_calibrate = capture
+    try:
+        warm = cli.main(argv + ["--platform", PLATFORM,
+                                "--out", str(tmp / "calib_warm")])
+    finally:
+        cal._lm_calibrate = real
+    args, kw = captured[0]
+    busy, wall, events = busy_share(lambda: real(*args, **kw))
+    fmt = {s: f"{cold.seconds[s]:.3f} / {warm.seconds[s]:.3f}"
+           for s in warm.seconds}
+    log(f"[calibrate] seconds cold / warm: detect {fmt['detect']}, "
+        f"interpolate {fmt['interpolate']}, refine {fmt['refine']}, "
+        f"calibrate (IPPE init + {CALIB_ITERS} LM iterations) "
+        f"{fmt['calibrate']}, previews {fmt['preview']}; the LM alone "
+        f"under torch.profiler: {wall:.3f} s, {events / CALIB_ITERS:.1f} "
+        f"device events an iteration, device busy {busy} on {smi}")
+    cpu = cli.main(argv + ["--platform", "cpu",
+                           "--out", str(tmp / "calib_cpu")])
+    kc = cpu.result.camera_matrix
+    rel = _max_rel(k, kc)
+    log(f"[calibrate] the card against the CPU: camera matrix max relative "
+        f"difference {rel:.3e} (tol {CALIB_TOL}); CPU stage seconds "
+        f"{cpu.seconds}")
+    if not rel <= CALIB_TOL:
+        raise AssertionError(f"calibrate: card {k.tolist()} vs CPU "
+                             f"{kc.tolist()}")
+
+    gboard, corners, mask = grid_views()
+    want = cal.calibrate(gboard, corners, mask, CALIB_SIZE,
+                         iters=CALIB_ITERS)
+    got = cal.calibrate(gboard, corners, mask, CALIB_SIZE,
+                        iters=CALIB_ITERS, device=dev)
+    torch.cuda.synchronize()
+    grel = _max_rel(got.camera_matrix, want.camera_matrix)
+    log(f"[calibrate] grid board ({int(mask.sum())} marker views of 12 x "
+        f"12): the card against the CPU at f64, camera matrix max relative "
+        f"difference {grel:.3e} (tol {CALIB_GRID_TOL}), rms "
+        f"{got.rms_px:.4f} px")
+    if not grel <= CALIB_GRID_TOL:
+        raise AssertionError(f"calibrate grid: card vs CPU {grel}")
+    return launches
+
+
+def _resume_pair(mod, npz: Path, tmp: Path, tag: str, flags):
+    """``mod.main`` with --checkpoint-every CKPT_EVERY, then resumed from
+    the checkpoint it last wrote: (uninterrupted result, resumed result,
+    the resumed run's launches, the frame the checkpoint holds)."""
+    import numpy as np
+    ck = tmp / f"{tag}_ck.npz"
+
+    def argv(run, *extra):
+        return ["--input", str(npz), "--platform", PLATFORM,
+                "--trajectory", str(tmp / f"{tag}_{run}.txt"),
+                "--map", str(tmp / f"{tag}_{run}_map.txt"), *flags, *extra]
+
+    full = mod.main(argv("full", "--checkpoint-every", str(CKPT_EVERY),
+                         "--checkpoint", str(ck)))
+    _reset_counts()
+    res = mod.main(argv("resumed", "--resume", str(ck)))
+    launches = _counts()
+    # (state, frames done, trajectory); run_offline's ingest saves no
+    # trajectory
+    last = 1 if mod.__name__.endswith("run_offline") else 2
+    with np.load(ck) as data:
+        done = int(data[f"leaf_{int(data['num_leaves']) - last}"])
+    if done != CHUNK - CKPT_EVERY:
+        raise AssertionError(f"checkpoint {tag}: the last checkpoint holds "
+                             f"frame {done}, not {CHUNK - CKPT_EVERY}")
+    return full, res, launches, done
+
+
+def phase_checkpoint(npz: Path, tmp: Path, main_res) -> dict:
+    """run_slam --checkpoint-every CKPT_EVERY on the main frames, then a
+    run that resumes from the checkpoint it last wrote (frame CHUNK -
+    CKPT_EVERY, 24 of 32): bit-identical trajectories and maps for mekf
+    and mekf_rotations, with B3 launched once a resumed frame. The
+    factor graph and run_offline's ingest sum by index_add_, which on
+    CUDA accumulates by atomics in an order that may differ from run to
+    run: their resumed runs are printed beside the spread of two
+    uninterrupted runs, and held within GRAPH_TOL of the uninterrupted
+    run under torch.use_deterministic_algorithms. Returns the resumed
+    mekf run's launches."""
+    import warnings
+    import torch
+    from aruco_slam_tpu_torch.apps import run_offline, run_slam
+    out = {}
+    for tag, mod, flags in (("mekf", run_slam, []),
+                            ("mekf_rotations", run_slam,
+                             ["--filter", "mekf_rotations"]),
+                            ("factorgraph", run_slam,
+                             ["--filter", "factorgraph"]),
+                            ("offline", run_offline, [])):
+        full, res, launches, done = _resume_pair(mod, npz, tmp, tag, flags)
+        diff = _max_diff(res.cam_traj, full.cam_traj)
+        same_map = Path(res.map_file).read_text() \
+            == Path(full.map_file).read_text()
+        log(f"[checkpoint] {tag}: resumed at frame {done}; max |resumed - "
+            f"uninterrupted| {diff:.3e} m, maps identical {same_map}; "
+            f"launches in the resumed run {launches}"
+            + (f"; the checkpointing run against the main run "
+               f"{_max_diff(full.cam_traj, main_res.cam_traj):.3e} m"
+               if tag == "mekf" else ""))
+        out[tag] = launches
+        if tag.startswith("mekf"):
+            if diff != 0 or not same_map:
+                raise AssertionError(f"checkpoint {tag}: the resumed run "
+                                     f"is not bit-identical ({diff} m)")
+            if launches["fused_update"] != CHUNK - done:
+                raise AssertionError(
+                    f"checkpoint {tag}: {launches['fused_update']} B3 "
+                    f"launches for {CHUNK - done} resumed frames")
+            continue
+        again = _resume_pair(mod, npz, tmp, tag + "_again", flags)[0]
+        spread = _max_diff(again.cam_traj, full.cam_traj)
+        with warnings.catch_warnings():
+            # cuBLAS without CUBLAS_WORKSPACE_CONFIG warns (warn_only)
+            warnings.simplefilter("ignore")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                det_full, det_res, _, _ = _resume_pair(
+                    mod, npz, tmp, tag + "_det", flags)
+            finally:
+                torch.use_deterministic_algorithms(False)
+        det = _max_diff(det_res.cam_traj, det_full.cam_traj)
+        log(f"[checkpoint] {tag}: two uninterrupted runs differ by "
+            f"{spread:.3e} m (index_add_'s atomics); under "
+            f"torch.use_deterministic_algorithms, max |resumed - "
+            f"uninterrupted| {det:.3e} m (tol {GRAPH_TOL})")
+        if not det <= GRAPH_TOL:
+            raise AssertionError(f"checkpoint {tag}: {det} m under "
+                                 "deterministic algorithms")
+    return out["mekf"]
+
+
+# the port's kernels by the names a device trace shows
+TRACE_NAMES = {"flood_scan_labels": ("stencil_rounds",),
+               "refine_corners": ("subpix_kernel",),
+               "fused_update": ("ns_cluster", "newton_schulz")}
+
+
+def phase_profile(npz: Path, tmp: Path, main_res) -> None:
+    """run_slam --profile DIR on the main frames: DIR/trace.json holds
+    device kernel events of B1, B2 and B3, and the trajectory is the
+    unprofiled main run's, bit for bit."""
+    import numpy as np
+    from aruco_slam_tpu_torch.apps import run_slam
+    out = tmp / "profile"
+    res = run_slam.main(["--input", str(npz), "--platform", PLATFORM,
+                         "--trajectory", str(tmp / "profiled.txt"),
+                         "--map", str(tmp / "profiled_map.txt"),
+                         "--profile", str(out)])
+    trace = out / "trace.json"
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+    found = {k: sum(n for name, n in kernels.items()
+                    if any(s in name for s in subs))
+             for k, subs in TRACE_NAMES.items()}
+    same = np.array_equal(res.cam_traj, main_res.cam_traj)
+    log(f"[profile] {trace.name}: {trace.stat().st_size / 2**20:.1f} MiB, "
+        f"{len(events)} events, {sum(kernels.values())} kernel events of "
+        f"{len(kernels)} kernels; the port's kernels' events {found}; "
+        f"trajectory bit-identical to the unprofiled run {same}")
+    if not all(found.values()) or not same:
+        raise AssertionError(f"profile: kernel events {found}, trajectory "
+                             f"equal {same}")
+
+
+def phase_make_synthetic(tmp: Path, smi: str) -> None:
+    """make_synthetic's pose-level default (300 frames, 12 markers)
+    through run_slam --filter mekf on the card (ATE under ATE_BOUND),
+    and its --images --video-rate frames against this script's own
+    render of the same orbit, bit for bit."""
+    import numpy as np
+    from aruco_slam_tpu_torch.apps import make_synthetic, run_slam
+    from aruco_slam_tpu_torch.bench import render, synthetic
+    from aruco_slam_tpu_torch.core import camera as cam_mod
+    pose = tmp / "synthetic.npz"
+    t0 = time.perf_counter()
+    make_synthetic.main(["--out", str(pose), "--frames", "300",
+                         "--markers", "12"])
+    made = time.perf_counter() - t0
+    res = run_slam.main(["--input", str(pose), "--platform", PLATFORM,
+                         "--filter", "mekf",
+                         "--trajectory", str(tmp / "synthetic.txt"),
+                         "--map", str(tmp / "synthetic_map.txt")])
+    log(f"[make-synthetic] 300 frames, 12 markers (pose level) made in "
+        f"{made:.2f} s; run_slam --filter mekf: ATE {res.ate:.4f} m (bound "
+        f"{ATE_BOUND}), stage seconds {res.seconds} on {smi}")
+    if not res.ate < ATE_BOUND:
+        raise AssertionError(f"make-synthetic: ATE {res.ate} m")
+    images = tmp / "synthetic_images.npz"
+    make_synthetic.main(["--out", str(images), "--images", "--video-rate",
+                         "--frames", "8"])
+    with np.load(images) as data:
+        got = data["images"]
+    cam = cam_mod.CameraModel.from_matrix(
+        np.array([[1414.9, 0.0, 967.0], [0.0, 1414.9, 544.3],
+                  [0.0, 0.0, 1.0]]),
+        np.array([0.0614, -0.2951, 0.0005, 0.0029, 0.4387]))
+    traj = synthetic.Trajectory(*(a[:8] for a in
+                                  synthetic.make_orbit_trajectory(80)))
+    want = render.render_sequence(synthetic.make_wall_scene(12, seed=0),
+                                  traj, cam, image_size=(1920, 1080))
+    same = got.shape == want.shape and np.array_equal(got, want)
+    log(f"[make-synthetic] --images --video-rate --frames 8: {got.shape} "
+        f"bit-identical to this script's render of the orbit {same}")
+    if not same:
+        raise AssertionError("make-synthetic: images differ from the "
+                             "render")
+
+
 def main() -> int:
     import torch
     name, smi = phase_device()
@@ -1988,6 +2444,10 @@ def main() -> int:
     log(f"[data] rendered {frames.shape} in "
         f"{time.perf_counter() - t0:.1f} s; visible markers per frame "
         f"{mask.sum(1).tolist()}")
+    t0 = time.perf_counter()
+    board, cviews, chess = calibration_views()
+    log(f"[data] rendered the calibration views {cviews.shape} in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     kernels = [_b1(rng, dev), _b2(frames, corners, mask, rng, dev)]
     captured = _capture_update_inputs(corners, mask, cam,
@@ -2000,6 +2460,21 @@ def main() -> int:
     kernels += [_b3(captured, captured_rot, captured_rot32, dev),
                 _b4(rng, dev),
                 _b5(frames, corners, mask, rng, dev)]
+    # B5's user path is the calibration CLI: its line carries the CLI's
+    # batched call (all views' chessboard corners)
+    b5_cal = _b5_calibration(cviews, chess, np.random.default_rng(SEED + 1),
+                             dev)
+    kernels[-1].update({k: b5_cal[-1][k] for k in (
+        "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms",
+        "bound_by")})
+    kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
+                                     *(c["max_abs_err"] for c in b5_cal))
+    kernels[-1]["shapes"] = [c["shape"] for c in b5_cal]
+    phase_undistort(
+        [cviews[0], frames[0]],
+        [cam_mod.CameraModel.from_matrix(np.asarray(CALIB_K, np.float32),
+                                         np.asarray(CALIB_DIST, np.float32)),
+         cam], dev, smi)
     # the fleet's second scene: another wall (seed 1), the same orbit
     t0 = time.perf_counter()
     frames2 = render.render_sequence(
@@ -2057,9 +2532,15 @@ def main() -> int:
                            sharded["f64_unsharded"], smi)
         paths.update({k: v for k, v in ranks.items()
                       if k.startswith("dist rank")})
+        paths["calibrate"] = phase_calibrate(Path(tmp), board, cviews, dev,
+                                             smi)
+        paths["checkpoint-resume"] = phase_checkpoint(npz, Path(tmp),
+                                                      main_res)
+        phase_profile(npz, Path(tmp), main_res)
+        phase_make_synthetic(Path(tmp), smi)
     # launches: the main path's, or for B4 and B5 (which the main path
-    # does not run) their own path's
-    own = {"flood_labels": "stencil-only", "refine_offsets": "refine_corners"}
+    # does not run) their own path's: B5's is the calibration CLI
+    own = {"flood_labels": "stencil-only", "refine_offsets": "calibrate"}
     for k in kernels:
         k["launches"] = paths[own.get(k["name"], "main")][k["name"]]
         k["launches_per_chunk"] = {p: c[k["name"]] for p, c in paths.items()}

@@ -731,3 +731,75 @@ def test_sharded_lm_cuda_matches_cpu_reads_nothing_back(device, local,
     for k in ("pose_t", "lm"):
         diff = (getattr(got, k).cpu() - getattr(want, k)).abs().max()
         assert float(diff) < 1e-6, k
+
+
+def test_calibration_lm_matches_cpu_reads_nothing_back(device, monkeypatch):
+    """ops/calibrate's float64 LM on the card: the camera matrix within
+    rtol 1e-9 of the CPU's, and its loop (`_lm_iterations`, 60 steps of
+    residuals, jacfwd, solve and the accept/reject) under
+    torch.cuda.set_sync_debug_mode("error")."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from aruco_slam_tpu_torch.ops import calibrate as cal
+    # tests/test_calibrate.py make_views' correspondences
+    board, corners, mask = chip_smoke.grid_views()
+    want = cal.calibrate(board, corners, mask, (1280, 720), iters=60)
+    real = cal._lm_iterations
+
+    def guarded(*args, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    monkeypatch.setattr(cal, "_lm_iterations", guarded)
+    got = cal.calibrate(board, corners, mask, (1280, 720), iters=60,
+                        device=device)
+    np.testing.assert_allclose(got.camera_matrix, want.camera_matrix,
+                               rtol=1e-9)
+    np.testing.assert_allclose(got.dist_coeffs, want.dist_coeffs, atol=1e-8)
+    assert got.rms_px < 0.3
+
+
+@pytest.mark.parametrize("views", [1, 12])
+def test_refine_offsets_at_calibration_shapes(device, views):
+    """B5 at the calibration CLI's call: 24 chessboard corners a view,
+    one view (24 patches) or the 12-view batch (288), p 23."""
+    rng = np.random.default_rng(views)
+    img = _smooth_image(rng, device)[:1].repeat(views, 1, 1)
+    seeds = torch.tensor(rng.uniform([20, 20], [300, 220], (views, 24, 2)),
+                         dtype=torch.float32, device=device)
+    rad, _ = cuda_subpix.schedule_params(((5, 8),))
+    patches, cx0, cy0 = cuda_subpix.gather_patches(img, seeds, rad)
+    c0 = cuda_subpix.start_offsets(seeds, cx0, cy0, rad)
+    patches = patches.reshape(-1, 2 * rad + 1, 2 * rad + 1)
+    c0 = c0.reshape(-1, 2)
+    assert patches.shape == (views * 24, 23, 23)
+    before = cuda_subpix.refine_offsets.launches
+    got = cuda_subpix.refine_offsets(patches, c0, ((5, 8),))
+    assert cuda_subpix.refine_offsets.launches == before + 1
+    want = cuda_subpix.refine_offsets_plain(patches, c0, ((5, 8),))
+    assert (got - want).abs().max().item() <= 2e-3  # px, reassociation
+
+
+@pytest.mark.parametrize("size", [(1280, 720), (1920, 1080)])
+def test_undistort_image_matches_cpu(device, size):
+    """core/camera.undistort_image on the card against the CPU: within
+    one gray level (a rounding tie at .5 may fall either way)."""
+    from aruco_slam_tpu_torch.core import camera as cam_mod
+    w, h = size
+    rng = np.random.default_rng(w)
+    img = torch.from_numpy(rng.integers(0, 256, (h, w), dtype=np.uint8))
+    cam = cam_mod.CameraModel.from_matrix(
+        np.float32([[0.7 * w, 0, w / 2], [0, 0.7 * w, h / 2], [0, 0, 1]]),
+        np.float32([0.08, -0.22, 0.001, 0.002, 0.11]))
+    want = cam_mod.undistort_image(cam, img)
+    got = cam_mod.undistort_image(cam.to(device=device), img.to(device))
+    assert got.dtype == torch.uint8 and got.is_cuda
+    diff = (got.cpu().int() - want.int()).abs()
+    assert diff.max().item() <= 1
+    assert (diff > 0).sum().item() < img.numel() // 1000

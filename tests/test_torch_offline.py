@@ -157,11 +157,8 @@ def test_run_offline_result(sequences, tmp_path):
     assert set(res.seconds) == {"front_end", "ingest", "solve"}
 
 
-# every JAX run_offline flag the port refuses: the profile, checkpoints
-# and viewers (ROADMAP A12)
-REFUSED = [["--profile", "{tmp}/p"], ["--checkpoint-every", "4"],
-           ["--resume", "{tmp}/ck.npz"], ["--viz-2d"], ["--viz-3d"],
-           ["--export-video"]]
+# every JAX run_offline flag the port refuses: the viewers (ROADMAP A12)
+REFUSED = [["--viz-2d"], ["--viz-3d"], ["--export-video"]]
 
 
 @pytest.mark.parametrize("flags", REFUSED, ids=lambda f: f[0])

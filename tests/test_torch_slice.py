@@ -147,9 +147,7 @@ def test_track_every_refusals(video_rate, flags, error):
         trun.main(["--input", str(video_rate), "--platform", "cpu", *flags])
 
 
-@pytest.mark.parametrize("flags", [
-    ["--resume", "ck.npz"], ["--viz-2d"],
-    ["--checkpoint-every", "4"]])
+@pytest.mark.parametrize("flags", [["--viz-2d"]])
 def test_unported_paths_refuse(sequence, flags):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         trun.main(["--input", str(sequence), "--platform", "cpu", *flags])
@@ -180,8 +178,8 @@ JAX_FLAGS = [["--window", "4"], ["--pose-budget", "64"],
 def test_jax_run_slam_flags_parse(poses, tmp_path, flags):
     """Each flag parses. The factor graph's tuning, --checkpoint and the
     viewer modifiers leave an MEKF run as it was without them (as in
-    the JAX run_slam) and write nothing of their own; --profile, a
-    device trace not ported yet, refuses before anything runs."""
+    the JAX run_slam) and write nothing of their own; --profile leaves
+    the trajectory equal and writes its trace, DIR/trace.json."""
     flags = [f.format(tmp=tmp_path) for f in flags]
 
     def run(tag, *extra):
@@ -190,16 +188,14 @@ def test_jax_run_slam_flags_parse(poses, tmp_path, flags):
                           "--trajectory", str(tmp_path / f"{tag}.txt"),
                           "--map", str(tmp_path / f"{tag}_map.txt"), *extra])
 
-    if flags[0] == "--profile":
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            run("profiled", *flags)
-        assert not list(tmp_path.iterdir())
-        return
     base, got = run("base"), run("flag", *flags)
     np.testing.assert_array_equal(got.cam_traj, base.cam_traj)
     assert Path(got.map_file).read_text() == Path(base.map_file).read_text()
-    assert sorted(p.name for p in tmp_path.iterdir()) == [
-        "base.txt", "base_map.txt", "flag.txt", "flag_map.txt"]
+    written = ["base.txt", "base_map.txt", "flag.txt", "flag_map.txt"]
+    if flags[0] == "--profile":
+        written.append("prof")
+        assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+    assert sorted(p.name for p in tmp_path.iterdir()) == written
 
 
 @pytest.fixture(scope="module")
@@ -366,6 +362,12 @@ def test_port_imports_no_jax():
         "import aruco_slam_tpu_torch.parallel.dist\n"
         "import aruco_slam_tpu_torch.parallel.sharded_ba\n"
         "import aruco_slam_tpu_torch.apps.run_offline\n"
+        "import aruco_slam_tpu_torch.apps.calibrate\n"
+        "import aruco_slam_tpu_torch.apps.make_synthetic\n"
+        "import aruco_slam_tpu_torch.core.lie\n"
+        "import aruco_slam_tpu_torch.ops.calibrate\n"
+        "import aruco_slam_tpu_torch.utils.checkpoint\n"
+        "import aruco_slam_tpu_torch.utils.profiling\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'aruco_slam_tpu'))\n"
         "assert not bad, bad\n"
