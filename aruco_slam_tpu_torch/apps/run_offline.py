@@ -42,9 +42,13 @@ saves the pass-1 ingest's (graph state, frames done) every N frames (the
 main process writes; `utils/checkpoint.py`, JAX's format), ``--resume
 PATH`` restarts the ingest from it on every process; ``--profile DIR``
 writes a torch.profiler trace of the front end, the ingest and the solve
-to DIR/trace.json. ``--platform cuda`` is the default and raises when no
-card is present. Every flag of the JAX run_offline parses, with its
-usage errors; the viewers are refused with a "not ported yet" error.
+to DIR/trace.json. ``--viz-2d`` / ``--viz-3d`` (``--viz-3d-renderer``,
+``--viz-dir``, ``--export-video``) replay the smoothed poses and the
+final map through the viewers after the solve (pass 2,
+`apps/sinks.replay`); a viewer whose library is missing is refused
+before any input is read. ``--platform cuda`` is the default and raises
+when no card is present. Every flag of the JAX run_offline parses and
+runs, with its usage errors.
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ import numpy as np
 import torch
 
 from aruco_slam_tpu_torch._device import resolve_device
+from aruco_slam_tpu_torch.apps import sinks
 from aruco_slam_tpu_torch.apps.run_slam import (
     _resolve_recycling, _sync, graph_config, load_observations,
     load_video_observations)
@@ -91,12 +96,6 @@ class OfflineResult(NamedTuple):
     ate: float | None         # vs the input's gt_cam_t, when present
     cost: float               # the batch solve's final cost
     seconds: dict             # front_end, ingest, solve (a fleet's: all)
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what}: not ported yet to the PyTorch/"
-                              "CUDA package (aruco_slam_tpu.apps."
-                              "run_offline has it)")
 
 
 def _child_command() -> list[str]:
@@ -222,9 +221,10 @@ def _seq_path(path: str, i: int, n: int) -> str:
 
 def _write_outputs(args, cfg: SlamAppConfig, gcfg: GraphConfig,
                    state: GraphState, times, slot_ids, src,
-                   seq_i: int = 0, n_seq: int = 1):
-    """Trajectory, map and ATE of one solved sequence: (cam_traj, ids,
-    ate)."""
+                   seq_i: int = 0, n_seq: int = 1, obs=None):
+    """Trajectory, pass-2 viewer replay (``obs`` = (t_cl, q_cl, mask,
+    cam), with --viz-2d / --viz-3d), map and ATE of one solved sequence:
+    (cam_traj, ids, ate)."""
     t = len(times)
     cam_traj = torch.cat([state.pose_t, state.pose_q], 1)[:t].cpu().numpy()
     traj_file = _seq_path(cfg.trajectory_file, seq_i, n_seq)
@@ -232,7 +232,13 @@ def _write_outputs(args, cfg: SlamAppConfig, gcfg: GraphConfig,
     with TrajectoryWriter(traj_file) as w:
         for i in range(t):
             w.write(float(times[i]), cam_traj[i])
-    slots = np.where(state.lm_active.cpu().numpy())[0]
+    active = state.lm_active.cpu().numpy()
+    if cfg.viz_2d or cfg.viz_3d:
+        t_cl, q_cl, mask, cam = obs
+        sinks.replay(sinks.build_viewers(cfg, cam, src), times, cam_traj,
+                     state.lm.cpu().numpy(), active, t_cl, q_cl, mask,
+                     slot_ids=slot_ids)
+    slots = np.where(active)[0]
     # id->slot table inputs record TRUE marker ids in the map file
     ids = slot_ids[slots] if slot_ids is not None else slots
     unc = torch.diagonal(landmark_covariances(gcfg, state), dim1=-2,
@@ -309,9 +315,10 @@ def _parser() -> argparse.ArgumentParser:
                         "--input) on a DATA x KF mesh: sequences split over "
                         "DATA, each landmark-sharded over KF; outputs get "
                         "_seqI suffixes")
-    # the JAX run_offline's viewers, not ported yet: refused in main;
-    # the modifiers of refused flags are accepted
-    p.add_argument("--viz-2d", action="store_true")
+    # pass-2 replay through the viewers (apps/sinks.py)
+    p.add_argument("--viz-2d", action="store_true",
+                   help="pass-2 replay through the 2D overlay on the real "
+                        "frames")
     p.add_argument("--viz-3d", action="store_true")
     p.add_argument("--viz-3d-renderer", default="mpl",
                    choices=["mpl", "fast"])
@@ -430,10 +437,19 @@ def main(argv=None):
     if args.fleet and (args.checkpoint_every or args.resume):
         p.error("--fleet does not checkpoint (per-sequence ingest is "
                 "cheap; checkpoint single-sequence runs)")
-    for flag, on in (("--viz-2d", args.viz_2d), ("--viz-3d", args.viz_3d),
-                     ("--export-video", args.export_video)):
-        if on:
-            _not_ported(flag)
+    cfg = SlamAppConfig(input=args.input, trajectory_file=args.trajectory,
+                        map_file=args.map_file, batch_iters=args.iters,
+                        meas_sigma_t=args.meas_sigma_t,
+                        odom_sigma_t=args.odom_sigma_t,
+                        odom_sigma_rot=args.odom_sigma_rot,
+                        viz_2d=args.viz_2d, viz_3d=args.viz_3d,
+                        viz_dir=args.viz_dir,
+                        viz_3d_renderer=args.viz_3d_renderer,
+                        export_video=args.export_video,
+                        track_every=args.track_every,
+                        detector=args.detector, capacity=args.capacity,
+                        slot_max_age=args.slot_max_age)
+    sinks.check_libraries(cfg)  # before any input is read
     if args.processes:
         return _launch_processes(args, argv)
     if args.distributed:
@@ -443,16 +459,6 @@ def main(argv=None):
     is_main = pdist.process_index() == 0
     device = resolve_device(args.platform)
 
-    cfg = SlamAppConfig(input=args.input, trajectory_file=args.trajectory,
-                        map_file=args.map_file, batch_iters=args.iters,
-                        meas_sigma_t=args.meas_sigma_t,
-                        odom_sigma_t=args.odom_sigma_t,
-                        odom_sigma_rot=args.odom_sigma_rot,
-                        viz_dir=args.viz_dir,
-                        viz_3d_renderer=args.viz_3d_renderer,
-                        track_every=args.track_every,
-                        detector=args.detector, capacity=args.capacity,
-                        slot_max_age=args.slot_max_age)
     if args.fleet:
         return _run_fleet(args, cfg, args.input.split(","), is_main, device,
                           local_devices)
@@ -504,7 +510,8 @@ def main(argv=None):
     print(f"ingest {seconds['ingest']:.3f}s, solve {seconds['solve']:.3f}s "
           f"({device})")
     cam_traj, ids, err = _write_outputs(args, cfg, gcfg, state, times,
-                                        slot_ids, src)
+                                        slot_ids, src,
+                                        obs=(t_cl, q_cl, mask, cam))
     return OfflineResult(cfg.trajectory_file, cfg.map_file, cam_traj,
                          np.asarray(ids), err, cost, seconds)
 

@@ -33,12 +33,27 @@ chunks), ``--resume PATH`` restarts from such a file (JAX's format:
 `utils/checkpoint.py`) after re-ingesting the input's observations;
 ``--profile DIR`` writes a torch.profiler trace of the front end and the
 backend to DIR/trace.json. The fleet writes neither (as in JAX).
+
+``--viz-2d`` (the overlay on the real frames), ``--viz-3d`` (the map,
+``--viz-3d-renderer mpl|fast``) and ``--display`` (live windows; without
+a display server a note and headless export) write PNGs under
+``--viz-dir``, and with ``--export-video`` MP4s (`apps/sinks.py`). With
+any viewer the MEKF steps once a frame instead of filtering in one
+scan, and reads the camera pose, the landmarks and their active flags
+back to the host in one copy a frame (the trajectory is the scan's,
+bit for bit); the factor graph feeds the viewers after each frame. The
+live window's 'q' ends the run. A viewer whose library is missing
+(matplotlib for the "mpl" renderer, cv2 or imageio's pyav for video)
+is refused before any input is read. ``RunResult.seconds`` then also
+holds the viewer loop's host seconds by stage: ``step`` (the filter's
+dispatch), ``read`` (the device→host copy, which waits for the step),
+``draw_2d``, ``raster_3d`` and ``png``.
+
 ``--platform cuda`` is the default and raises when no card is present;
 the run never moves to the CPU in its place. Every flag of the JAX
-run_slam parses: the factor graph's tuning flags are accepted and
-unused on the MEKF paths, as there; the viewers, not ported yet, are
-refused with a "not ported yet" error, except that with several inputs
-the viewer flags print the JAX run_slam's note and the fleet is served.
+run_slam parses and runs: the factor graph's tuning flags are accepted
+and unused on the MEKF paths, as there, and with several inputs the
+viewer flags print the JAX run_slam's note and the fleet is served.
 """
 
 from __future__ import annotations
@@ -53,12 +68,13 @@ import numpy as np
 import torch
 
 from aruco_slam_tpu_torch._device import resolve_device
+from aruco_slam_tpu_torch.apps import sinks
 from aruco_slam_tpu_torch.bench import ate
 from aruco_slam_tpu_torch.config import SlamAppConfig
 from aruco_slam_tpu_torch.core import camera as cam_mod
 from aruco_slam_tpu_torch.filters import mekf as mekf_mod
 from aruco_slam_tpu_torch.filters import (
-    FrameObservations, MekfConfig, init_state, mekf_scan)
+    FrameObservations, MekfConfig, init_state, mekf_scan, mekf_step)
 from aruco_slam_tpu_torch.graph import (
     GraphConfig, add_frame, init_graph, landmark_covariances,
     marginalize_poses, optimize_window)
@@ -71,7 +87,7 @@ from aruco_slam_tpu_torch.parallel.multi_slam import (
     batched_mekf_scan, stack_states)
 from aruco_slam_tpu_torch.utils.checkpoint import (
     load_checkpoint, save_checkpoint)
-from aruco_slam_tpu_torch.utils.profiling import device_trace
+from aruco_slam_tpu_torch.utils.profiling import StageTimer, device_trace
 
 
 class RunResult(NamedTuple):
@@ -85,12 +101,6 @@ class RunResult(NamedTuple):
     landmark_ids: np.ndarray  # marker ids in the map file
     ate: float | None         # vs the input's gt_cam_t, when present
     seconds: dict             # wall time per stage
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what}: not ported yet to the PyTorch/"
-                              "CUDA package (aruco_slam_tpu.apps.run_slam "
-                              "has it)")
 
 
 def _sync(device: torch.device) -> None:
@@ -427,15 +437,47 @@ def _resume(resume, state):
     return state, start, np.asarray(head)[:start]
 
 
+def _feed_viewers(viewers, cam_pose, lm, active, t_cl, q_cl, mask,
+                  slot_ids=None):
+    """One frame's host snapshot through every sink: the active
+    landmarks and the frame's (t_cl, q_cl, marker id) detections (the
+    slot index is the id for corner- and pose-level inputs). Like the
+    JAX driver, it labels every frame with the final id->slot table."""
+    pts = np.asarray(lm)[:, :3][np.asarray(active)]
+    ids = None if slot_ids is None else np.asarray(slot_ids)
+    det = [(t_cl[j], q_cl[j], int(j) if ids is None else int(ids[j]))
+           for j in np.where(np.asarray(mask))[0]]
+    for v in viewers:
+        v.view_frame(cam_pose, pts, det)
+
+
+def _snapshot(pose, lm, active, timer: StageTimer):
+    """pose (7,), lm (L, D) and active (L,) read back in ONE copy: (pose,
+    landmark positions (L, 3), active) as host arrays."""
+    with timer.stage("read"):
+        flat = torch.cat([pose, lm[:, :3].reshape(-1),
+                          active.to(pose.dtype)]).cpu().numpy()
+    n = len(active)
+    return flat[:7], flat[7:7 + 3 * n].reshape(n, 3), flat[7 + 3 * n:] > 0
+
+
 def run_mekf(cfg: SlamAppConfig, times, t_cl, q_cl, mask, cam,
              device: torch.device, with_rotations: bool = False,
              load_map_file=None, ambiguity=None, slot_ids=None,
-             reset=None, ckpt_every: int = 0, ckpt_path=None, resume=None):
+             reset=None, ckpt_every: int = 0, ckpt_path=None, resume=None,
+             viewers=(), timer: StageTimer | None = None):
     """Filter the whole sequence; returns (cam_traj (T, 7), active (C,),
     landmark positions (C, 3), uncertainties (C, 3)). With
     ``ckpt_every`` N the scan runs in N-frame chunks and writes (state,
     frames done, trajectory so far) to ``ckpt_path`` after each chunk
-    but the last; ``resume`` restarts from such a file."""
+    but the last; ``resume`` restarts from such a file.
+
+    With ``viewers`` the filter steps once a frame (the scan's steps on
+    the scan's inputs, so the trajectory is the same bit for bit), reads
+    the frame's snapshot back in one copy, feeds the sinks, and
+    checkpoints every ``ckpt_every`` frames; the live window's 'q' ends
+    the run, and cam_traj then holds the frames done. ``timer`` takes
+    the loop's ``step`` and ``read`` seconds."""
     max_obs = _auto_max_obs(cfg, mask, t_cl.shape[1])
     fcfg = _mekf_config(cfg, t_cl.shape[1], max_obs, with_rotations, cam)
     state = init_state(fcfg, device=device)
@@ -452,14 +494,38 @@ def run_mekf(cfg: SlamAppConfig, times, t_cl, q_cl, mask, cam,
     if resume:
         state, start, head = _resume(resume, state)
         cam_traj[:start] = head
-    step = max(ckpt_every or tt - start, 1)
-    for s in range(start, tt, step):
-        e = min(s + step, tt)
-        state, traj = mekf_scan(fcfg, state, FrameObservations(
-            *(None if a is None else a[s:e] for a in seq)))
-        cam_traj[s:e] = traj.cpu().numpy()
-        if ckpt_every and ckpt_path is not None and e < tt:
-            save_checkpoint(ckpt_path, (state, np.int64(e), cam_traj[:e]))
+        for v in viewers:  # align frame providers with the skip
+            getattr(v, "skip_to", lambda i: None)(start)
+    if viewers:
+        timer = timer or StageTimer()
+        for i in range(start, tt):
+            with timer.stage("step"):
+                state = mekf_step(fcfg, state, FrameObservations(
+                    *(None if a is None else a[i] for a in seq)))
+            cam_traj[i], lm, active = _snapshot(
+                torch.cat([state.cam_t, state.cam_q]), state.lm,
+                state.active, timer)
+            _feed_viewers(viewers, cam_traj[i], lm, active, t_cl[i],
+                          q_cl[i], mask[i], slot_ids)
+            if sinks.stop_requested(viewers):
+                # the live window's 'q' ends the RUN, like the
+                # reference's loop break (reference main/run_slam.py:127-141)
+                cam_traj = cam_traj[:i + 1]
+                break
+            if ckpt_every and ckpt_path is not None \
+                    and (i + 1) % ckpt_every == 0 and i + 1 < tt:
+                save_checkpoint(ckpt_path, (state, np.int64(i + 1),
+                                            cam_traj[:i + 1]))
+    else:
+        step = max(ckpt_every or tt - start, 1)
+        for s in range(start, tt, step):
+            e = min(s + step, tt)
+            state, traj = mekf_scan(fcfg, state, FrameObservations(
+                *(None if a is None else a[s:e] for a in seq)))
+            cam_traj[s:e] = traj.cpu().numpy()
+            if ckpt_every and ckpt_path is not None and e < tt:
+                save_checkpoint(ckpt_path,
+                                (state, np.int64(e), cam_traj[:e]))
     _warn_dropped(state.dropped_obs.cpu().numpy(), fcfg.max_obs)
     unc = mekf_mod.landmark_uncertainties(fcfg, state).cpu().numpy()
     return (cam_traj, state.active.cpu().numpy(),
@@ -530,7 +596,8 @@ def graph_config(cfg: SlamAppConfig, max_poses: int, max_landmarks: int,
 def run_factorgraph(cfg: SlamAppConfig, times, t_cl, q_cl, mask, cam,
                     device: torch.device, with_rotations: bool = False,
                     dtype: torch.dtype = torch.float32, ckpt_every: int = 0,
-                    ckpt_path=None, resume=None):
+                    ckpt_path=None, resume=None, viewers=(), slot_ids=None,
+                    timer: StageTimer | None = None):
     """The online factor graph over the whole sequence: per frame
     `add_frame` and a ``cfg.window``-pose `optimize_window`; with a pose
     budget shorter than the run, the oldest half of the poses is
@@ -540,8 +607,11 @@ def run_factorgraph(cfg: SlamAppConfig, times, t_cl, q_cl, mask, cam,
     landmark covariances. With ``ckpt_every`` N, (state, frames done,
     trajectory so far) goes to ``ckpt_path`` every N frames but after
     the last; ``resume`` restarts from such a file (the pose count from
-    its ``num_poses``). Returns (cam_traj (T, 7), active (L,), landmark
-    positions (L, 3), uncertainties (L, D))."""
+    its ``num_poses``). With ``viewers``, each frame's pose, landmarks
+    and active flags are read back in one copy and fed to the sinks
+    (``timer`` takes the ``read`` seconds); the live window's 'q' ends
+    the run. Returns (cam_traj (T, 7), active (L,), landmark positions
+    (L, 3), uncertainties (L, D))."""
     t = len(times)
     budget = cfg.pose_budget
     if budget and budget < t + 2:
@@ -563,6 +633,9 @@ def run_factorgraph(cfg: SlamAppConfig, times, t_cl, q_cl, mask, cam,
     if resume:
         state, start, head = _resume(resume, state)
         num = int(state.num_poses)
+        for v in viewers:  # align frame providers with the skip
+            getattr(v, "skip_to", lambda i: None)(start)
+    timer = timer or StageTimer()
     poses = []
 
     def materialize():
@@ -582,6 +655,13 @@ def run_factorgraph(cfg: SlamAppConfig, times, t_cl, q_cl, mask, cam,
         if budget and num >= max_poses - 1:
             state = marginalize_poses(gcfg, state, drop)
             num = max(num - drop, 1)
+        if viewers:
+            pose, lm, active = _snapshot(poses[-1], state.lm,
+                                         state.lm_active, timer)
+            _feed_viewers(viewers, pose, lm, active, t_cl[i], q_cl[i],
+                          mask[i], slot_ids)
+            if sinks.stop_requested(viewers):
+                break  # the live window's 'q' ends the run
         if ckpt_every and ckpt_path and (i + 1) % ckpt_every == 0 \
                 and i + 1 < t:
             save_checkpoint(ckpt_path, (state, np.int64(i + 1),
@@ -821,15 +901,24 @@ def _parser() -> argparse.ArgumentParser:
                    default=dflt.odom_sigma_rot)
     p.add_argument("--huber-delta", type=float, default=dflt.huber_delta)
     p.add_argument("--ba-rotations", action="store_true")
-    # the JAX run_slam's viewers, not ported yet: refused in main; the
-    # modifiers of refused flags are accepted
-    p.add_argument("--viz-2d", action="store_true")
-    p.add_argument("--viz-3d", action="store_true")
-    p.add_argument("--display", action="store_true")
+    # the viewers (apps/sinks.py): PNGs under --viz-dir, MP4s with
+    # --export-video
+    p.add_argument("--viz-2d", action="store_true",
+                   help="2D overlay: detected-marker axes, outline and id, "
+                        "and the map points, on the real frames")
+    p.add_argument("--viz-3d", action="store_true",
+                   help="3D map: trajectory, landmarks, detections, camera")
+    p.add_argument("--display", action="store_true",
+                   help="live 2D and 3D windows, 'q' quits (needs a display "
+                        "server and cv2; headless export without one)")
     p.add_argument("--viz-dir", default=dflt.viz_dir)
     p.add_argument("--viz-3d-renderer", default=dflt.viz_3d_renderer,
-                   choices=["mpl", "fast"])
-    p.add_argument("--export-video", action="store_true")
+                   choices=["mpl", "fast"],
+                   help="mpl = matplotlib figures; fast = the numpy "
+                        "raster (needs no library)")
+    p.add_argument("--export-video", action="store_true",
+                   help="also write {viz_dir}/2d.mp4 / 3d.mp4 (cv2, or "
+                        "imageio with pyav)")
     p.add_argument("--checkpoint-every", type=int, default=0,
                    help="save a resumable checkpoint every N frames "
                         "(0 = off)")
@@ -845,9 +934,10 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _run_single(cfg: SlamAppConfig, args, device: torch.device):
-    """One input through the front end and the backend: (stage seconds,
-    the npz source or None, (times, mask, slot_ids, cam_traj, active,
-    landmarks, uncertainties))."""
+    """One input through the front end, the viewers' construction and
+    the backend: (stage seconds, the npz source or None, the viewers,
+    (times, mask, slot_ids, cam_traj, active, landmarks,
+    uncertainties)). The caller closes the viewers."""
     seconds = {}
     t0 = time.perf_counter()
     if is_video(cfg.input):
@@ -860,26 +950,31 @@ def _run_single(cfg: SlamAppConfig, args, device: torch.device):
     _sync(device)
     seconds["front_end"] = time.perf_counter() - t0
 
+    timer = StageTimer()
+    viewers = sinks.build_viewers(cfg, obs[4], src, display=args.display,
+                                  timer=timer)
     t0 = time.perf_counter()
-    ckpt = dict(ckpt_every=args.checkpoint_every, ckpt_path=args.checkpoint,
-                resume=args.resume)
+    kw = dict(ckpt_every=args.checkpoint_every, ckpt_path=args.checkpoint,
+              resume=args.resume, viewers=viewers, timer=timer)
     if cfg.filter == "factorgraph":
         # the graph keys landmarks by column and has no reset: recycled
         # slots become fresh columns (the MEKF consumes `reset` itself)
         times, t_cl, q_cl, mask, cam, amb, slot_ids = \
             _resolve_recycling(obs)
         out = run_factorgraph(cfg, times, t_cl, q_cl, mask, cam, device,
-                              with_rotations=args.ba_rotations, **ckpt)
+                              with_rotations=args.ba_rotations,
+                              slot_ids=slot_ids, **kw)
     else:
         times, t_cl, q_cl, mask, cam, amb, slot_ids, reset, _ids = obs
         out = run_mekf(
             cfg, times, t_cl, q_cl, mask, cam, device,
             with_rotations=cfg.filter == "mekf_rotations",
             load_map_file=args.load_map, ambiguity=amb, slot_ids=slot_ids,
-            reset=reset, **ckpt)
+            reset=reset, **kw)
     _sync(device)
     seconds["filter"] = time.perf_counter() - t0
-    return seconds, src, (times, mask, slot_ids, *out)
+    seconds.update(timer.totals)  # the viewer loop's stages, if any
+    return seconds, src, viewers, (times, mask, slot_ids, *out)
 
 
 def main(argv=None) -> RunResult | list[RunResult]:
@@ -890,7 +985,6 @@ def main(argv=None) -> RunResult | list[RunResult]:
                      "the velocity prior)")
     inputs = [s for s in args.input.split(",") if s]
     fleet = "," in args.input
-    viewers = args.viz_2d or args.viz_3d or args.display
     if fleet:  # the JAX run_slam's refusals, word for word in effect
         if args.slot_max_age:
             parser.error("--slot-max-age is not supported by multi-stream "
@@ -904,11 +998,6 @@ def main(argv=None) -> RunResult | list[RunResult]:
                 and len(inputs) % args.rescue_cohorts:
             raise ValueError(f"rescue_cohorts={args.rescue_cohorts} must "
                              f"divide streams={len(inputs)}")
-    for flag, on in (("--viz-2d", args.viz_2d and not fleet),
-                     ("--viz-3d", args.viz_3d and not fleet),
-                     ("--display", args.display and not fleet)):
-        if on:
-            _not_ported(flag)
     device = resolve_device(args.platform)
 
     cfg = SlamAppConfig(
@@ -930,16 +1019,22 @@ def main(argv=None) -> RunResult | list[RunResult]:
         capacity=args.capacity, slot_max_age=args.slot_max_age,
         rescue_cohorts=args.rescue_cohorts)
     if fleet:
-        if viewers:
+        if args.viz_2d or args.viz_3d or args.display:
             print("note: viz/display are per-stream features; the "
                   "fleet path writes trajectories/maps only")
         return run_multi_stream(cfg, inputs, args.calib, device)
+    sinks.check_libraries(cfg, args.display)  # before any input is read
 
     with device_trace(args.profile):
-        seconds, src, (times, mask, slot_ids, cam_traj, active, lm,
-                       unc) = _run_single(cfg, args, device)
+        seconds, src, viewers, (times, mask, slot_ids, cam_traj, active,
+                                lm, unc) = _run_single(cfg, args, device)
+    for v in viewers:
+        v.close()
     if args.profile:
         print(f"wrote {Path(args.profile) / 'trace.json'}")
+    if len(cam_traj) < len(times):  # the live window's 'q' ended the run
+        print(f"quit requested at frame {len(cam_traj)}/{len(times)}")
+        times, mask = times[:len(cam_traj)], mask[:len(cam_traj)]
     tt = len(times)
     stage = "graph" if cfg.filter == "factorgraph" else "filter"
     print(f"front end: {tt} frames in {seconds['front_end']:.3f}s; "

@@ -10,8 +10,10 @@ the same bytes (integer BT.601 weights, floored), which
 tests/test_torch_core.py checks on the imageio route with and without
 that library. `PrefetchingFrameSource` decodes ahead on a background
 thread into a bounded queue, where the JAX package feeds a native ring.
-`write_png_gray` writes 8-bit grayscale PNGs with the standard library
-alone (the calibration previews; `read_png_gray` reads them back).
+`write_png_gray` and `write_png_rgb` write 8-bit grayscale and RGB PNGs
+with the standard library alone (the calibration previews and the
+viewers' frames, so that they need no image library);
+`read_png_gray` and `read_png_rgb` read them back.
 """
 
 from __future__ import annotations
@@ -282,28 +284,25 @@ def _png_chunk(tag: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
 
-def write_png_gray(path, img: np.ndarray) -> None:
-    """Write an (H, W) uint8 image as an 8-bit grayscale PNG (every row
-    unfiltered, one zlib stream)."""
-    img = np.ascontiguousarray(img)
-    if img.ndim != 2 or img.dtype != np.uint8:
-        raise ValueError(f"need an (H, W) uint8 image, got {img.dtype} "
-                         f"{img.shape}")
-    h, w = img.shape
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), img], axis=1)
+# PNG colour types (8 bits a sample each): (name, samples a pixel)
+_PNG_TYPES = {0: ("grayscale", 1), 2: ("RGB", 3)}
+
+
+def _write_png(path, img: np.ndarray, color_type: int, level: int) -> None:
+    h, w = img.shape[:2]
+    rows = np.concatenate(
+        [np.zeros((h, 1), np.uint8), img.reshape(h, -1)], axis=1)
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_bytes(
         _PNG_SIGNATURE
-        + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
-        + _png_chunk(b"IDAT", zlib.compress(rows.tobytes()))
+        + _png_chunk(b"IHDR",
+                     struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0))
+        + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
         + _png_chunk(b"IEND", b""))
 
 
-def read_png_gray(path) -> np.ndarray:
-    """Read back what `write_png_gray` writes: an 8-bit grayscale,
-    non-interlaced PNG whose rows are unfiltered. Anything else
-    raises ValueError (this is not a general decoder)."""
+def _read_png(path, color_type: int) -> np.ndarray:
     data = Path(path).read_bytes()
     if not data.startswith(_PNG_SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
@@ -319,11 +318,47 @@ def read_png_gray(path) -> np.ndarray:
         elif tag == b"IDAT":
             idat.append(body)
         pos += 12 + n
-    if head is None or head[2:] != (8, 0, 0, 0, 0):
-        raise ValueError(f"{path}: not an 8-bit grayscale PNG ({head})")
+    name, c = _PNG_TYPES[color_type]
+    if head is None or head[2:] != (8, color_type, 0, 0, 0):
+        raise ValueError(f"{path}: not an 8-bit {name} PNG ({head})")
     w, h = head[:2]
     rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    rows = rows.reshape(h, w + 1)
+    rows = rows.reshape(h, w * c + 1)
     if rows[:, 0].any():
         raise ValueError(f"{path}: filtered rows are not supported")
-    return rows[:, 1:].copy()
+    img = rows[:, 1:].copy()
+    return img if c == 1 else img.reshape(h, w, c)
+
+
+def write_png_gray(path, img: np.ndarray) -> None:
+    """Write an (H, W) uint8 image as an 8-bit grayscale PNG (every row
+    unfiltered, one zlib stream)."""
+    img = np.ascontiguousarray(img)
+    if img.ndim != 2 or img.dtype != np.uint8:
+        raise ValueError(f"need an (H, W) uint8 image, got {img.dtype} "
+                         f"{img.shape}")
+    _write_png(path, img, 0, zlib.Z_DEFAULT_COMPRESSION)
+
+
+def read_png_gray(path) -> np.ndarray:
+    """Read back what `write_png_gray` writes: an 8-bit grayscale,
+    non-interlaced PNG whose rows are unfiltered. Anything else
+    raises ValueError (this is not a general decoder)."""
+    return _read_png(path, 0)
+
+
+def write_png_rgb(path, img: np.ndarray) -> None:
+    """Write an (H, W, 3) uint8 image as an 8-bit RGB PNG (every row
+    unfiltered, one zlib stream at level 1, the fastest: the viewers
+    write a PNG a frame)."""
+    img = np.ascontiguousarray(img)
+    if img.ndim != 3 or img.shape[2] != 3 or img.dtype != np.uint8:
+        raise ValueError(f"need an (H, W, 3) uint8 image, got {img.dtype} "
+                         f"{img.shape}")
+    _write_png(path, img, 2, 1)
+
+
+def read_png_rgb(path) -> np.ndarray:
+    """Read back what `write_png_rgb` writes: (H, W, 3) uint8. Anything
+    else raises ValueError (this is not a general decoder)."""
+    return _read_png(path, 2)

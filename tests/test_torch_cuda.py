@@ -803,3 +803,50 @@ def test_undistort_image_matches_cpu(device, size):
     diff = (got.cpu().int() - want.int()).abs()
     assert diff.max().item() <= 1
     assert (diff > 0).sum().item() < img.numel() // 1000
+
+
+@pytest.fixture(scope="module")
+def image_seq(tmp_path_factory):
+    """tests/test_io_apps.py's bundle: 6 rendered 720x405 frames."""
+    from aruco_slam_tpu_torch.apps import make_synthetic
+    from aruco_slam_tpu_torch.io import save_npz
+    path = tmp_path_factory.mktemp("imgseq") / "seq.npz"
+    k = np.array([[530.0, 0.0, 360.0], [0.0, 530.0, 202.0],
+                  [0.0, 0.0, 1.0]])
+    save_npz(path, **make_synthetic.build(
+        frames=6, markers=6, capacity=16, noise_px=0.2, camera_matrix=k,
+        dist_coeffs=np.zeros(5), with_images=True, image_size=(720, 405)))
+    return path
+
+
+def test_viewer_path_on_card(device, image_seq, tmp_path):
+    """run_slam --viz-2d --viz-3d --viz-3d-renderer fast on the card: the
+    trajectory bit-identical to the card's run without viewers, B3 once
+    a frame, and each overlay and map frame within 0.5% of its pixels of
+    the CPU run's (the card's f32 filter differs from the CPU's in the
+    last bits, and the map dots follow it)."""
+    from aruco_slam_tpu_torch.apps import run_slam
+    from aruco_slam_tpu_torch.io import read_png_rgb
+
+    def run(tag, platform, *flags):
+        return run_slam.main([
+            "--input", str(image_seq), "--platform", platform,
+            "--trajectory", str(tmp_path / f"{tag}.txt"),
+            "--map", str(tmp_path / f"{tag}_map.txt"),
+            "--viz-dir", str(tmp_path / tag), *flags])
+
+    flags = ["--viz-2d", "--viz-3d", "--viz-3d-renderer", "fast"]
+    before = cuda_mekf.fused_update.launches
+    card = run("card", "cuda", *flags)
+    assert cuda_mekf.fused_update.launches == before + 6
+    plain = run("plain", "cuda")
+    assert np.array_equal(card.cam_traj, plain.cam_traj)
+    run("cpu", "cpu", *flags)
+    for sub, pattern in (("2d", "frame_*.png"), ("3d", "map_*.png")):
+        names = sorted(p.name for p in (tmp_path / "cpu" / sub).glob(pattern))
+        assert len(names) == 6
+        for name in names:
+            got = read_png_rgb(tmp_path / "card" / sub / name)
+            want = read_png_rgb(tmp_path / "cpu" / sub / name)
+            differ = (got != want).any(axis=-1).sum()
+            assert differ <= 0.005 * got.shape[0] * got.shape[1], name

@@ -157,21 +157,6 @@ def test_run_offline_result(sequences, tmp_path):
     assert set(res.seconds) == {"front_end", "ingest", "solve"}
 
 
-# every JAX run_offline flag the port refuses: the viewers (ROADMAP A12)
-REFUSED = [["--viz-2d"], ["--viz-3d"], ["--export-video"]]
-
-
-@pytest.mark.parametrize("flags", REFUSED, ids=lambda f: f[0])
-def test_run_offline_refuses_unported(sequences, tmp_path, flags):
-    """Refused before anything is read or written."""
-    flags = [f.format(tmp=tmp_path) for f in flags]
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        toff.main(["--input", str(sequences[0]), "--platform", "cpu",
-                   "--trajectory", str(tmp_path / "t.txt"),
-                   "--map", str(tmp_path / "m.txt"), *flags])
-    assert not list(tmp_path.iterdir())
-
-
 def _run_group(args):
     """run_offline as a command in its own session: --processes starts
     grandchildren, and a run past 120 s kills the whole group."""

@@ -147,12 +147,6 @@ def test_track_every_refusals(video_rate, flags, error):
         trun.main(["--input", str(video_rate), "--platform", "cpu", *flags])
 
 
-@pytest.mark.parametrize("flags", [["--viz-2d"]])
-def test_unported_paths_refuse(sequence, flags):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        trun.main(["--input", str(sequence), "--platform", "cpu", *flags])
-
-
 @pytest.fixture(scope="module")
 def poses(tmp_path_factory):
     """A pose-level bundle (12 frames, 6 markers): the filter alone."""
@@ -351,7 +345,9 @@ def _python(code_or_args, **kw):
 
 def test_port_imports_no_jax():
     """The port and chip_smoke.py import neither jax nor the JAX
-    package (the machine with the card has no jax)."""
+    package (the machine with the card has no jax), and the viewers
+    import no image, plotting or video library when they are imported
+    (one without them imports the port all the same)."""
     proc = _python(["-c", (
         "import sys\n"
         "import chip_smoke\n"
@@ -368,8 +364,14 @@ def test_port_imports_no_jax():
         "import aruco_slam_tpu_torch.ops.calibrate\n"
         "import aruco_slam_tpu_torch.utils.checkpoint\n"
         "import aruco_slam_tpu_torch.utils.profiling\n"
+        "import aruco_slam_tpu_torch.viz\n"
+        "import aruco_slam_tpu_torch.viz.draw\n"
+        "import aruco_slam_tpu_torch.viz.video\n"
+        "import aruco_slam_tpu_torch.apps.sinks\n"
+        "import aruco_slam_tpu_torch.bench.degrade\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'aruco_slam_tpu'))\n"
+        "('jax', 'jaxlib', 'aruco_slam_tpu', 'cv2', 'imageio', "
+        "'matplotlib', 'PIL', 'av'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")])
     assert proc.returncode == 0, proc.stderr
