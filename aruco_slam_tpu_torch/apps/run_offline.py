@@ -73,8 +73,8 @@ from aruco_slam_tpu_torch.apps.run_slam import (
 from aruco_slam_tpu_torch.bench import ate
 from aruco_slam_tpu_torch.config import SlamAppConfig
 from aruco_slam_tpu_torch.graph import (
-    GraphConfig, GraphState, add_frame, batch_optimize, init_graph,
-    landmark_covariances, optimize_window, state_from_numpy,
+    GraphConfig, GraphState, add_frame, batch_optimize, check_indices,
+    init_graph, landmark_covariances, optimize_window, state_from_numpy,
     state_to_numpy)
 from aruco_slam_tpu_torch.io import (
     NpzSource, TrajectoryWriter, is_video, save_map)
@@ -198,6 +198,7 @@ def _ingest(gcfg: GraphConfig, cfg: SlamAppConfig, t_cl, mask, q_cl,
     start = 0
     if resume:
         state, fdone = load_checkpoint(resume, (state, np.int64(0)))
+        check_indices(gcfg, state)
         start = int(fdone)
         if is_main:
             print(f"resumed from {resume} at ingest frame {start}")

@@ -76,7 +76,7 @@ from aruco_slam_tpu_torch.filters import mekf as mekf_mod
 from aruco_slam_tpu_torch.filters import (
     FrameObservations, MekfConfig, init_state, mekf_scan, mekf_step)
 from aruco_slam_tpu_torch.graph import (
-    GraphConfig, add_frame, init_graph, landmark_covariances,
+    GraphConfig, add_frame, check_indices, init_graph, landmark_covariances,
     marginalize_poses, optimize_window)
 from aruco_slam_tpu_torch.io import (
     NpzSource, PrefetchingFrameSource, TrajectoryWriter, is_video, load_map,
@@ -306,18 +306,25 @@ def _prefetched_video(path: str):
         frames, first[1].shape))
 
 
-def load_video_observations(cfg: SlamAppConfig, calib_dir,
-                            device: torch.device, shard=None):
-    """A video's loader tuple (see `load_observations`): the camera from
-    ``calib_dir``'s camera_matrix.npy + dist_coeffs.npy (else the
-    config's), frames decoded ahead on a thread into the front end.
-    ``shard=(pid, nproc)`` shards the candidate pipeline over processes
-    (`_observations_from_frames_sharded`)."""
+def load_camera(cfg: SlamAppConfig, calib_dir=None, device=None
+                ) -> cam_mod.CameraModel:
+    """Camera from saved calibration artifacts (``calib_dir``'s
+    camera_matrix.npy + dist_coeffs.npy, the reference's files) or the
+    config fallback, as f32 on ``device``."""
     k, d = cfg.camera_matrix, cfg.dist_coeffs
     if calib_dir:
         k = np.load(Path(calib_dir) / "camera_matrix.npy")
         d = np.load(Path(calib_dir) / "dist_coeffs.npy")
-    cam = _camera(k, d, device)
+    return _camera(k, d, device)
+
+
+def load_video_observations(cfg: SlamAppConfig, calib_dir,
+                            device: torch.device, shard=None):
+    """A video's loader tuple (see `load_observations`): the camera from
+    `load_camera`, frames decoded ahead on a thread into the front end.
+    ``shard=(pid, nproc)`` shards the candidate pipeline over processes
+    (`_observations_from_frames_sharded`)."""
+    cam = load_camera(cfg, calib_dir, device)
     frames = _prefetched_video(cfg.input)
     if shard and shard[1] > 1:
         return _observations_from_frames_sharded(frames, cam, cfg, device,
@@ -632,6 +639,7 @@ def run_factorgraph(cfg: SlamAppConfig, times, t_cl, q_cl, mask, cam,
     start, head = 0, np.zeros((0, 7), np.float32)
     if resume:
         state, start, head = _resume(resume, state)
+        check_indices(gcfg, state)
         num = int(state.num_poses)
         for v in viewers:  # align frame providers with the skip
             getattr(v, "skip_to", lambda i: None)(start)
@@ -730,12 +738,8 @@ def run_multi_stream(cfg: SlamAppConfig, inputs: list[str], calib_dir,
               f"{tlen} frames")
     times = loaded[0][0][:tlen]
     calib = next((c for _, _, c, _ in loaded if c is not None), None)
-    if calib is None:
-        calib = (cfg.camera_matrix, cfg.dist_coeffs)
-        if calib_dir:
-            calib = (np.load(Path(calib_dir) / "camera_matrix.npy"),
-                     np.load(Path(calib_dir) / "dist_coeffs.npy"))
-    cam = _camera(*calib, device)
+    cam = load_camera(cfg, calib_dir, device) if calib is None \
+        else _camera(*calib, device)
     for _, _, _, src in loaded:  # npz marker size, as one stream's path
         if src is not None and src.has("marker_size"):
             cfg.marker_size = float(src["marker_size"])

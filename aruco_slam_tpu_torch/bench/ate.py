@@ -1,5 +1,6 @@
-"""Absolute trajectory error (counterpart of aruco_slam_tpu/bench/ate.py):
-Umeyama alignment, then the RMSE over translations."""
+"""Trajectory error (counterpart of aruco_slam_tpu/bench/ate.py): the
+absolute error (Umeyama alignment, then the RMSE over translations) and
+the relative one (translation drift over a frame delta)."""
 
 from __future__ import annotations
 
@@ -29,3 +30,10 @@ def ate_rmse(est_t: np.ndarray, gt_t: np.ndarray,
     s, r, t = umeyama_alignment(est_t, gt_t, with_scale)
     aligned = (s * (r @ est_t.T)).T + t
     return float(np.sqrt(((aligned - gt_t) ** 2).sum(axis=-1).mean()))
+
+
+def rpe_rmse(est_t: np.ndarray, gt_t: np.ndarray, delta: int = 1) -> float:
+    """Relative pose (translation drift) error over a frame delta."""
+    de = est_t[delta:] - est_t[:-delta]
+    dg = gt_t[delta:] - gt_t[:-delta]
+    return float(np.sqrt(((de - dg) ** 2).sum(axis=-1).mean()))

@@ -12,6 +12,7 @@ from aruco_slam_tpu_torch.graph.ba import (
     GraphState,
     add_frame,
     batch_optimize,
+    check_indices,
     init_graph,
     landmark_covariances,
     marginalize_poses,
@@ -25,6 +26,7 @@ __all__ = [
     "GraphState",
     "add_frame",
     "batch_optimize",
+    "check_indices",
     "init_graph",
     "landmark_covariances",
     "marginalize_poses",

@@ -9,10 +9,10 @@ layout and step order:
 * identity-motion odometry factors between consecutive poses and
   camera→landmark factors r = R_iᵀ(l_j − t_i) − t_cl, whitened per axis;
 * residuals and their closed-form Jacobian blocks batched over the
-  factor arrays, normal equations assembled by accumulating
-  index-adds into dense blocks, landmarks eliminated by a dense Schur
-  complement S = H_pp − W H_ll⁻¹ Wᵀ, the reduced camera system solved
-  by Cholesky.
+  factor arrays, normal equations assembled by fixed-order sums into
+  dense blocks (the same on every run, on a card too), landmarks
+  eliminated by a dense Schur complement S = H_pp − W H_ll⁻¹ Wᵀ, the
+  reduced camera system solved by Cholesky.
 
 Fixed capacities everywhere (`max_poses`, `max_landmarks`,
 `max_factors`) with validity masks, as in the JAX package. What JAX gets
@@ -103,7 +103,8 @@ def state_from_numpy(cfg: GraphConfig, arrays: dict,
         dt = torch.int32 if k in _INT_FIELDS else torch.bool \
             if k in _BOOL_FIELDS else cfg.dtype
         return torch.tensor(a, device=device).to(dt)
-    return GraphState(**{k: conv(k) for k in GraphState._fields})
+    return check_indices(cfg, GraphState(**{k: conv(k)
+                                            for k in GraphState._fields}))
 
 
 def state_to_numpy(state: GraphState) -> dict:
@@ -158,17 +159,60 @@ def _scatter_drop(arr: torch.Tensor, dest: torch.Tensor,
                   vals: torch.Tensor) -> torch.Tensor:
     """``arr.at[dest].set(vals, mode="drop")`` for ``dest`` in [0, len]:
     index ``len(arr)`` lands in a spare row that is cut off."""
+    # only the spare row can take two values, so the order of the copies
+    # on a card changes nothing that is kept
     buf = torch.cat([arr, arr[:1]])
     buf.index_copy_(0, dest, vals.to(arr.dtype))
     return buf[:-1]
+
+
+def _sum_into(buf: torch.Tensor, idx, vals) -> torch.Tensor:
+    """``buf[idx[f]] += vals[f]`` along the first axis, in place, in the
+    same order on every run. Tensor.index_add adds by atomics on a card,
+    so its sums change from run to run; ``index_put_`` with
+    ``accumulate`` sorts the indices (stably) and adds each row's values
+    in that fixed order, which is also what the index-add runs under
+    ``torch.use_deterministic_algorithms``. The public ``index_put_``
+    also reduces the indices to check their range on every call, which
+    costs an LM iteration more than its sums do, so this calls the op
+    beneath it without that check: every index here is in range by
+    construction (`add_frame`, `marginalize_poses`) or checked where a
+    state enters (`check_indices`). It has a vmap rule, for the sharded
+    and fleet solves."""
+    return torch.ops.aten._index_put_impl_(buf, (idx,), vals, True, True)
+
+
+def _spread_unused(used: torch.Tensor, idx: torch.Tensor, n: int
+                   ) -> torch.Tensor:
+    """``idx`` where ``used``, else f mod n for entry f. The entries not
+    used add exact zeros, so the row they land on changes no sum; spread
+    over the rows, they never form one long run of equal indices, which
+    `_sum_into` would add up one after another (the factor capacity not
+    yet filled holds index 0 throughout)."""
+    spread = torch.arange(idx.shape[-1], device=idx.device) % n
+    return torch.where(used, idx, spread)
+
+
+def check_indices(cfg: GraphConfig, state: GraphState) -> GraphState:
+    """``state`` if every factor's pose and landmark index lies within
+    the capacities, else ValueError: for a state read from a file or
+    built elsewhere, before a solve sums by those indices."""
+    for name, cap in (("f_pose", cfg.max_poses),
+                      ("f_lm", cfg.max_landmarks)):
+        idx = getattr(state, name)
+        if idx.numel() and not (int(idx.min()) >= 0
+                                and int(idx.max()) < cap):
+            raise ValueError(f"GraphState.{name} holds indices outside "
+                             f"[0, {cap})")
+    return state
 
 
 def _block_add(buf: torch.Tensor, rows, cols, vals) -> torch.Tensor:
     """Accumulate (F, m, n) blocks into ``buf`` (R, C, m, n) at (rows[f],
     cols[f]); blocks that share a position add up."""
     r, c = buf.shape[:2]
-    return buf.reshape(r * c, *buf.shape[2:]).index_add_(
-        0, rows * c + cols, vals).view(buf.shape)
+    return _sum_into(buf.reshape(r * c, *buf.shape[2:]), rows * c + cols,
+                     vals).view(buf.shape)
 
 
 def _outer(a, b):
@@ -202,6 +246,9 @@ def add_frame(cfg: GraphConfig, state: GraphState, t_cl: torch.Tensor,
     observations beyond factor capacity are dropped."""
     dt = cfg.dtype
     dev = state.pose_q.device
+    if mask.shape[0] > cfg.max_landmarks:
+        raise ValueError(f"add_frame: {mask.shape[0]} slots, more than "
+                         f"max_landmarks={cfg.max_landmarks}")
     i = state.num_poses - 1
     cam_q, cam_t = _row(state.pose_q, i), _row(state.pose_t, i)  # (1, .)
     t_cl = torch.where(mask[:, None], t_cl.to(dt), 0.0)
@@ -391,16 +438,17 @@ def _meas_terms(cfg: GraphConfig, state: GraphState, pose_free
     def zeros(*shape):
         # made from a factor tensor, so that under torch.func.vmap (the
         # sharded and fleet solves, parallel/sharded_ba.py) the buffer
-        # carries the batch and the index-adds accumulate per problem
+        # carries the batch and the sums accumulate per problem
         return r_m.new_zeros(shape)
 
+    fp, fl = _spread_unused(valid, fp, tcap), _spread_unused(valid, fl, lcap)
     w4 = _block_add(zeros(tcap, lcap, 6, ld), fp, fl, _outer(jp_m, jl_m))
     return MeasTerms(
-        diag=zeros(tcap, 6, 6).index_add_(0, fp, _outer(jp_m, jp_m)),
+        diag=_sum_into(zeros(tcap, 6, 6), fp, _outer(jp_m, jp_m)),
         w4=w4.permute(0, 2, 1, 3),
-        h_ll=zeros(lcap, ld, ld).index_add_(0, fl, _outer(jl_m, jl_m)),
-        g_p=zeros(tcap, 6).index_add_(0, fp, _gradient(jp_m, r_m)),
-        g_l=zeros(lcap, ld).index_add_(0, fl, _gradient(jl_m, r_m)),
+        h_ll=_sum_into(zeros(lcap, ld, ld), fl, _outer(jl_m, jl_m)),
+        g_p=_sum_into(zeros(tcap, 6), fp, _gradient(jp_m, r_m)),
+        g_l=_sum_into(zeros(lcap, ld), fl, _gradient(jl_m, r_m)),
         cost=torch.sum(r_m * r_m))
 
 
@@ -655,11 +703,12 @@ def marginalize_poses(cfg: GraphConfig, state: GraphState,
     jp_m = torch.where((dropped & (f_pose > 0))[:, None, None], jp_m, 0.0)
     jl_m = torch.where(dropped[:, None, None], jl_m, 0.0)
 
-    # dropped-pose system H_dd, clamped block indices
-    fp = torch.clamp(f_pose, max=n_drop - 1)
+    # dropped-pose system H_dd; the kept factors add zeros
+    fp = _spread_unused(dropped, f_pose, n_drop)
+    fl = _spread_unused(dropped, f_lm, lcap)
     h_dd4 = zeros(n_drop, n_drop, 6, 6)
     _block_add(h_dd4, fp, fp, _outer(jp_m, jp_m))
-    g_d = zeros(n_drop, 6).index_add_(0, fp, _gradient(jp_m, r_m))
+    g_d = _sum_into(zeros(n_drop, 6), fp, _gradient(jp_m, r_m))
 
     # odometry among dropped poses (a = i, b = i-1, a < n_drop) and the
     # boundary pair a = n_drop (kept, fixed): only its J_b enters
@@ -677,17 +726,17 @@ def marginalize_poses(cfg: GraphConfig, state: GraphState,
     cross = _outer(ja_o, jb_o)
     _block_add(h_dd4, oa, ob, cross)
     _block_add(h_dd4, ob, oa, cross.transpose(-1, -2))
-    g_d.index_add_(0, oa, _gradient(ja_o, r_o))
-    g_d.index_add_(0, ob, _gradient(jb_o, r_o))
+    _sum_into(g_d, oa, _gradient(ja_o, r_o))
+    _sum_into(g_d, ob, _gradient(jb_o, r_o))
     h_dd = h_dd4.permute(0, 2, 1, 3).reshape(d6, d6) \
         + 1e-6 * torch.eye(d6, dtype=dt, device=dev)
 
     # coupling W (6D, L, 3) and the dropped factors' landmark blocks
-    w_d = _block_add(zeros(n_drop, lcap, 6, 3), fp, f_lm,
+    w_d = _block_add(zeros(n_drop, lcap, 6, 3), fp, fl,
                      _outer(jp_m, jl_m)).permute(0, 2, 1, 3).reshape(
                          d6, lcap, 3)
-    h_ll_f = zeros(lcap, 3, 3).index_add_(0, f_lm, _outer(jl_m, jl_m))
-    g_lf = zeros(lcap, 3).index_add_(0, f_lm, _gradient(jl_m, r_m))
+    h_ll_f = _sum_into(zeros(lcap, 3, 3), fl, _outer(jl_m, jl_m))
+    g_lf = _sum_into(zeros(lcap, 3), fl, _gradient(jl_m, r_m))
 
     # Schur: Λ_add[j] = H_j − W_jᵀ H_dd⁻¹ W_j ; g'_j = g_j − W_jᵀ H_dd⁻¹ g_d
     hinv = _cho_solve(h_dd, torch.cat(

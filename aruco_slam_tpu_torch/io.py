@@ -239,6 +239,13 @@ class TrajectoryWriter:
             self.file = None
 
 
+def write_trajectory(filename, times_s, poses) -> None:
+    """Batch write: times (T,), poses (T, 7) = [xyz, quat wxyz]."""
+    with TrajectoryWriter(filename) as w:
+        for t, p in zip(np.asarray(times_s), np.asarray(poses)):
+            w.write(float(t), p)
+
+
 def read_trajectory(filename) -> tuple[np.ndarray, np.ndarray]:
     """TUM file -> (times (T,), poses (T, 7) [xyz, quat wxyz])."""
     rows = [[float(v) for v in line.split()]

@@ -589,6 +589,30 @@ def detect_markers_mapped(image: torch.Tensor, cfg: DetectorConfig,
                       cand_ids=cand_ids, cand_valid=decoded), table_ids
 
 
+def detect_markers_batch(images: torch.Tensor, cfg: DetectorConfig
+                         ) -> Detections:
+    """Detection over a leading batch axis (B, H, W): `detect_markers`,
+    which runs the batch as one."""
+    return detect_markers(images, cfg)
+
+
+def detect_markers_batch_mapped(images: torch.Tensor, cfg: DetectorConfig,
+                                table_ids: torch.Tensor):
+    """Mapped full detection over a chunk of consecutive frames of one
+    stream (T, H, W): the candidate pipeline runs the T frames as one
+    batch, and only the slot assignment, whose id->slot table is the one
+    piece of cross-frame state, steps frame by frame. Returns (corners
+    (T, C, 4, 2), mask (T, C), final table_ids)."""
+    canon, cand_ids, decoded, top_score = _detect_candidates(images, cfg)
+    corners, masks = [], []
+    for i in range(images.shape[0]):
+        sc, sm, table_ids = assign_slots(table_ids, canon[i], cand_ids[i],
+                                         decoded[i], top_score[i])
+        corners.append(sc)
+        masks.append(sm)
+    return torch.stack(corners), torch.stack(masks), table_ids
+
+
 def assign_slots_lru(table_ids, last_seen, frame_idx, max_age: int,
                      canon, cand_ids, decoded, top_score):
     """Slot assignment with LRU recycling (``max_age`` > 0) and

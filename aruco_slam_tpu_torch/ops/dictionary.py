@@ -19,6 +19,11 @@ import numpy as np
 DATA = Path(__file__).resolve().parent / "data"
 
 DICT_5X5_50 = "dict_5x5_50"
+DICT_4X4_50 = "dict_4x4_50"
+DICT_6X6_50 = "dict_6x6_50"
+DICT_7X7_50 = "dict_7x7_50"
+DICT_ARUCO_ORIGINAL = "aruco_original"
+DICT_APRILTAG_36H11 = "apriltag_36h11"
 
 
 def names() -> list[str]:
@@ -58,3 +63,13 @@ def load(name: str = DICT_5X5_50) -> Dictionary:
     return Dictionary(name=name, bits=bits, table=table,
                       table_ids=np.concatenate(ids).astype(np.int32),
                       table_rot=np.concatenate(rots).astype(np.int32))
+
+
+def marker_image(d: Dictionary, marker_id: int,
+                 cell_px: int = 16) -> np.ndarray:
+    """Rasterize marker `marker_id` with its 1-cell black border:
+    ((n+2)·cell_px)² uint8 image, white=255 bits, black border."""
+    n = d.marker_bits
+    grid = np.zeros((n + 2, n + 2), np.uint8)
+    grid[1:-1, 1:-1] = d.bits[marker_id]
+    return np.kron(grid * 255, np.ones((cell_px, cell_px), np.uint8))

@@ -46,6 +46,31 @@ def square_object_points(marker_size, dtype=torch.float32,
         dtype=dtype, device=device)
 
 
+def homography_4pt(obj_xy: torch.Tensor, img_xy: torch.Tensor
+                   ) -> torch.Tensor:
+    """DLT homography from exactly 4 correspondences.
+
+    obj_xy: (..., 4, 2) plane coordinates; img_xy: (..., 4, 2) normalized
+    image coordinates. Returns (..., 3, 3) with H[2,2] = 1. The 8x8
+    normal equations are solved by the unrolled Cholesky."""
+    x, y = obj_xy[..., 0], obj_xy[..., 1]
+    u, v = img_xy[..., 0], img_xy[..., 1]
+    zeros, ones = torch.zeros_like(x), torch.ones_like(x)
+    rows_u = torch.stack([x, y, ones, zeros, zeros, zeros, -u * x, -u * y],
+                         dim=-1)
+    rows_v = torch.stack([zeros, zeros, zeros, x, y, ones, -v * x, -v * y],
+                         dim=-1)
+    a = torch.cat([rows_u, rows_v], dim=-2)              # (..., 8, 8)
+    b = torch.cat([u, v], dim=-1)                        # (..., 8)
+    ata = torch.einsum("...mi,...mj->...ij", a, a)
+    atb = torch.einsum("...mi,...m->...i", a, b)
+    h = _solve_spd_entries([[ata[..., i, j] for j in range(8)]
+                            for i in range(8)],
+                           [atb[..., i] for i in range(8)])
+    h = torch.stack(h + [torch.ones_like(h[0])], dim=-1)
+    return h.reshape(*h.shape[:-1], 3, 3)
+
+
 def _safe_div(a, b, eps=_EPS):
     return a / torch.where(torch.abs(b) < eps,
                            torch.where(b < 0, -eps, eps), b)

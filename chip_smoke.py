@@ -29,7 +29,11 @@ non-zero, and no result line is printed):
                 (also forced to at most 8, 6 and 4 rounds a launch),
                 B5 patch-fed refinement (refine_corners' 12,288 patches
                 and the calibration CLI's 24 and 12 x 24 chessboard
-                corners). Times: `ms` and `plain_ms` are
+                corners); B3 also at the bench drivers' shapes (the
+                large map's N = 1545, M = 144 and the headline's 256
+                streams of N = 198, M = 48, inputs captured from their
+                filters run with the kernel), timed beside the XLA-form
+                update those drivers run. Times: `ms` and `plain_ms` are
                 the median of one call on an idle card (host time
                 between launches included), `device_ms` and
                 `plain_device_ms` device time (20 calls queued behind a
@@ -90,7 +94,7 @@ non-zero, and no result line is printed):
                 frames, 12 markers, pose budget 128, window 8, 3
                 iterations): the marginalizations, exactly after frames
                 125, 189 and 253; ATE under 0.1 m; warm frames/s; the
-                device-busy share and device events a frame of 64 frames
+                device-busy share and device events a frame of 16 frames
                 under torch.profiler; the card against the CPU at float64
                 over 140 frames (trajectory and landmarks within 1e-6 m).
 15. offline    — `run_offline.main` on the main frames (3 B1, 1 B2, no
@@ -138,10 +142,11 @@ non-zero, and no result line is printed):
                 correspondences, the card against the CPU at f64 within
                 1e-9.
 21. checkpoint — `run_slam --checkpoint-every 8` on the main frames and a
-                run resumed from its last checkpoint (frame 24):
-                bit-identical for mekf and mekf_rotations (B3 once a
-                resumed frame), within 1e-6 m for the factor graph and
-                run_offline's ingest.
+                run resumed from its last checkpoint (frame 24), in the
+                default mode a user runs: bit-identical for mekf,
+                mekf_rotations (B3 once a resumed frame), the factor
+                graph and run_offline's ingest; for the last two also
+                two uninterrupted runs bit-identical.
 22. profile    — `run_slam --profile DIR`: DIR/trace.json holds device
                 events of B1, B2 and B3, the trajectory bit-identical.
 23. make-synthetic — the default pose-level bundle (300 frames, 12
@@ -163,9 +168,8 @@ non-zero, and no result line is printed):
                 device-busy share of a viewer run and a main-path run.
 25. viz-graph  — `run_slam --filter factorgraph --viz-2d`, and
 26. viz-offline — `run_offline --viz-2d --viz-3d --viz-3d-renderer
-                fast`, each under torch.use_deterministic_algorithms and
-                equal to its run without viewers: one PNG a frame, B1 3,
-                B2 1, no B3.
+                fast`, each equal to its run without viewers: one PNG a
+                frame, B1 3, B2 1, no B3.
 27. degraded   — the main frames degraded by `bench/degrade.py`'s blur,
                 motion, noise, lighting, combined and lowlight presets
                 (tests/test_detect.py's), and `combined` on the scene
@@ -175,6 +179,24 @@ non-zero, and no result line is printed):
                 lighting, combined and the clutter (printed for motion
                 and lowlight), frames/s and detections a frame against
                 the clean run.
+28. bench-e2e  — `bench/e2e.py`'s main at its defaults (128 rendered
+                1080p frames, chunk 16) in five modes: default,
+                --track-every 8, --streams 8, --streams 8 --track-every 8
+                --rescue-cohorts 4, --degrade combined: the row; B1, B2
+                and B3 launched exactly 3 and 1 a detection batch, 3 B2 a
+                tracked batch and 1 B3 a filter step (the calls counted
+                in the run); detections a frame beside run_slam's on the
+                same frames (equal in the default mode).
+29. detect-profile — `bench/detect_profile.py` (16 frames): the
+                detector's stages, adding up to its total.
+30. large-map  — `bench/large_map.py` at its defaults (512 markers, 512
+                frames, batch 8, the XLA-form update: no B3) and with
+                --cov-dtype bf16: the rows, ATE under 0.3 m (default),
+                peak device memory.
+31. headline   — `bench/headline.py`: the 512-frame single stream (B3 a
+                frame) and 256 sequences, with its ride-along fields; its
+                e2e and large-map runs at [bench-e2e]'s and [large-map]'s
+                arguments reuse those rows.
 
 The line before the last is {"kernels": [...]} (each with its launches
 on the main path, or on its own path for B4 and B5 (the calibration
@@ -182,7 +204,9 @@ CLI's, whose shapes B5's times are at), and its launches
 per 32-frame chunk on every path (`degraded`: the clutter run's): the
 fleet-ba runs hold four
 sequences of one chunk each, the dist ranks one 16-frame chunk each);
-the last line is {"ok": true, "device": {...}}. Imports nothing of JAX
+`launches_bench` counts each bench driver's launches over its whole
+run (warm call, timed reps and stage split); the last line is {"ok":
+true, "device": {...}}. Imports nothing of JAX
 and nothing of the JAX package (aruco_slam_tpu).
 """
 
@@ -229,7 +253,8 @@ POSE_BUDGET = 128
 ONLINE_ATE_BOUND = 0.1  # m, the bound of tests/test_graph.py:338
 GRAPH_CHECK_FRAMES = 140
 GRAPH_TOL = 1e-6      # m, the card's f64 trajectory against the CPU's
-PROFILE_FRAMES = 64   # the online frames traced for the device-busy share
+PROFILE_FRAMES = 16   # the online frames traced for the device-busy share
+                      # (a longer trace's processing takes tens of seconds)
 # the large-map batch solve (BASELINE config 3 at the scale of
 # aruco_slam_tpu/bench/large_map.py): markers, raster frames, LM iterations
 LARGE_MARKERS = 512
@@ -276,8 +301,16 @@ SPLIT_REPS = 10       # calls whose launch-group split is the median
 SPIN_CYCLES = 100_000_000  # ~50 ms of the card's clock ahead of timed calls
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _elapsed(after: str) -> None:
+    log(f"[time] {time.perf_counter() - T_START:.1f} s into the script, "
+        f"after {after}")
 
 
 def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -892,22 +925,6 @@ def _require(counts: dict, path: str, names) -> None:
 def _b123(launches: dict) -> list:
     return [launches[k] for k in ("flood_scan_labels", "refine_corners",
                                   "fused_update")]
-
-
-@contextlib.contextmanager
-def _deterministic():
-    """torch.use_deterministic_algorithms for the block (index_add_ on
-    CUDA accumulates by atomics otherwise)."""
-    import warnings
-    import torch
-    with warnings.catch_warnings():
-        # cuBLAS without CUBLAS_WORKSPACE_CONFIG warns (warn_only)
-        warnings.simplefilter("ignore")
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
-            yield
-        finally:
-            torch.use_deterministic_algorithms(False)
 
 
 @contextlib.contextmanager
@@ -2316,17 +2333,16 @@ def _resume_pair(mod, npz: Path, tmp: Path, tag: str, flags):
     return full, res, launches, done
 
 
-def phase_checkpoint(npz: Path, tmp: Path, main_res) -> dict:
+def phase_checkpoint(npz: Path, tmp: Path, main_res, smi: str) -> dict:
     """run_slam --checkpoint-every CKPT_EVERY on the main frames, then a
     run that resumes from the checkpoint it last wrote (frame CHUNK -
-    CKPT_EVERY, 24 of 32): bit-identical trajectories and maps for mekf
-    and mekf_rotations, with B3 launched once a resumed frame. The
-    factor graph and run_offline's ingest sum by index_add_, which on
-    CUDA accumulates by atomics in an order that may differ from run to
-    run: their resumed runs are printed beside the spread of two
-    uninterrupted runs, and held within GRAPH_TOL of the uninterrupted
-    run under torch.use_deterministic_algorithms. Returns the resumed
-    mekf run's launches."""
+    CKPT_EVERY, 24 of 32): bit-identical trajectories and maps for mekf,
+    mekf_rotations, the factor graph and run_offline's ingest, in the
+    default mode a user runs (the graph's sums are in a fixed order), B3
+    launched once a resumed frame on the MEKF paths; for the factor graph
+    and run_offline also a second uninterrupted run, bit-identical to the
+    first. Returns the resumed mekf run's launches."""
+    import torch
     from aruco_slam_tpu_torch.apps import run_offline, run_slam
     out = {}
     for tag, mod, flags in (("mekf", run_slam, []),
@@ -2346,10 +2362,10 @@ def phase_checkpoint(npz: Path, tmp: Path, main_res) -> dict:
                f"{_max_diff(full.cam_traj, main_res.cam_traj):.3e} m"
                if tag == "mekf" else ""))
         out[tag] = launches
+        if diff != 0 or not same_map:
+            raise AssertionError(f"checkpoint {tag}: the resumed run is "
+                                 f"not bit-identical ({diff} m)")
         if tag.startswith("mekf"):
-            if diff != 0 or not same_map:
-                raise AssertionError(f"checkpoint {tag}: the resumed run "
-                                     f"is not bit-identical ({diff} m)")
             if launches["fused_update"] != CHUNK - done:
                 raise AssertionError(
                     f"checkpoint {tag}: {launches['fused_update']} B3 "
@@ -2357,17 +2373,15 @@ def phase_checkpoint(npz: Path, tmp: Path, main_res) -> dict:
             continue
         again = _resume_pair(mod, npz, tmp, tag + "_again", flags)[0]
         spread = _max_diff(again.cam_traj, full.cam_traj)
-        with _deterministic():
-            det_full, det_res, _, _ = _resume_pair(mod, npz, tmp,
-                                                   tag + "_det", flags)
-        det = _max_diff(det_res.cam_traj, det_full.cam_traj)
+        same_map = Path(again.map_file).read_text() \
+            == Path(full.map_file).read_text()
         log(f"[checkpoint] {tag}: two uninterrupted runs differ by "
-            f"{spread:.3e} m (index_add_'s atomics); under "
-            f"torch.use_deterministic_algorithms, max |resumed - "
-            f"uninterrupted| {det:.3e} m (tol {GRAPH_TOL})")
-        if not det <= GRAPH_TOL:
-            raise AssertionError(f"checkpoint {tag}: {det} m under "
-                                 "deterministic algorithms")
+            f"{spread:.3e} m, maps identical {same_map} (default mode, "
+            f"torch.use_deterministic_algorithms "
+            f"{torch.are_deterministic_algorithms_enabled()}) on {smi}")
+        if spread != 0 or not same_map:
+            raise AssertionError(f"checkpoint {tag}: two uninterrupted "
+                                 f"runs differ by {spread} m")
     return out["mekf"]
 
 
@@ -2611,19 +2625,18 @@ def phase_viz(npz: Path, tmp: Path, main_argv, main_res, main_fps: float,
 
 
 def phase_viz_graph(npz: Path, tmp: Path) -> dict:
-    """run_slam --filter factorgraph --viz-2d on the main frames under
-    torch.use_deterministic_algorithms: the trajectory equal to the same
-    run's without the viewer, B1 3, B2 1, no B3, one overlay a frame."""
+    """run_slam --filter factorgraph --viz-2d on the main frames: the
+    trajectory equal to the same run's without the viewer, B1 3, B2 1,
+    no B3, one overlay a frame."""
     import numpy as np
     from aruco_slam_tpu_torch.apps import run_slam
     t_phase = time.perf_counter()
-    with _deterministic():
-        plain = run_slam.main(_viz_argv(npz, tmp, "viz_graph_plain",
-                                        "--filter", "factorgraph"))
-        _reset_counts()
-        res = run_slam.main(_viz_argv(npz, tmp, "viz_graph", "--filter",
-                                      "factorgraph", "--viz-2d"))
-        launches = _counts()
+    plain = run_slam.main(_viz_argv(npz, tmp, "viz_graph_plain",
+                                    "--filter", "factorgraph"))
+    _reset_counts()
+    res = run_slam.main(_viz_argv(npz, tmp, "viz_graph", "--filter",
+                                  "factorgraph", "--viz-2d"))
+    launches = _counts()
     same = np.array_equal(res.cam_traj, plain.cam_traj)
     over = _pngs(tmp / "viz_graph_viz" / "2d", "frame_*.png", CHUNK,
                  (540, 960, 3), "viz-graph")
@@ -2639,20 +2652,17 @@ def phase_viz_graph(npz: Path, tmp: Path) -> dict:
 
 def phase_viz_offline(npz: Path, tmp: Path) -> dict:
     """run_offline --viz-2d --viz-3d --viz-3d-renderer fast (pass-2
-    replay) under torch.use_deterministic_algorithms: the trajectory
-    equal to the same run's without viewers, B1 3, B2 1, no B3, one
-    overlay and one map frame a frame."""
+    replay): the trajectory equal to the same run's without viewers, B1
+    3, B2 1, no B3, one overlay and one map frame a frame."""
     import numpy as np
     from aruco_slam_tpu_torch.apps import run_offline
     t_phase = time.perf_counter()
-    with _deterministic():
-        plain = run_offline.main(_viz_argv(npz, tmp, "viz_offline_plain"))
-        _reset_counts()
-        t0 = time.perf_counter()
-        res = run_offline.main(_viz_argv(npz, tmp, "viz_offline",
-                                         *VIZ_FLAGS))
-        dt = time.perf_counter() - t0
-        launches = _counts()
+    plain = run_offline.main(_viz_argv(npz, tmp, "viz_offline_plain"))
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = run_offline.main(_viz_argv(npz, tmp, "viz_offline", *VIZ_FLAGS))
+    dt = time.perf_counter() - t0
+    launches = _counts()
     same = np.array_equal(res.cam_traj, plain.cam_traj)
     viz = tmp / "viz_offline_viz"
     over = _pngs(viz / "2d", "frame_*.png", CHUNK, (540, 960, 3),
@@ -2766,6 +2776,341 @@ def phase_degraded(frames, traj, cam, scene, k, dist, tmp: Path, main_res,
     return out["clutter"]
 
 
+# ---------------------------------------------------------------------------
+# The bench drivers (aruco_slam_tpu_torch/bench): e2e, detect_profile,
+# large_map, headline, each through its own main at its defaults.
+# ---------------------------------------------------------------------------
+
+E2E_MODES = (("default", ()),
+             ("track-every 8", ("--track-every", "8")),
+             ("streams 8", ("--streams", "8")),
+             ("streams 8, track-every 8, 4 cohorts",
+              ("--streams", "8", "--track-every", "8", "--rescue-cohorts",
+               "4")),
+             ("degrade combined", ("--degrade", "combined")))
+E2E_FRAMES = 128         # bench/e2e.py's default --frames
+B3_CAPTURE_FRAMES = 64   # large-map frames filtered before B3's capture
+HEADLINE_CAPTURE_FRAMES = 16
+
+
+@contextlib.contextmanager
+def _counting_calls(calls: dict):
+    """Within the block, count the detection batches
+    (`detect.detect_markers`: B1 3 launches, B2 1 each), the tracked
+    batches (`detect.track_markers`: B2 3 each) and the filter steps
+    (`mekf.mekf_step`: B3 1 each on the kernel's configurations, all
+    streams at once) that the drivers make."""
+    from aruco_slam_tpu_torch.filters import mekf
+    from aruco_slam_tpu_torch.ops import detect
+    real = {(detect, "detect_markers"): detect.detect_markers,
+            (detect, "track_markers"): detect.track_markers,
+            (mekf, "mekf_step"): mekf.mekf_step}
+
+    def counting(name, fn):
+        def wrapped(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return wrapped
+
+    for (mod, name), fn in real.items():
+        calls[name] = 0
+        setattr(mod, name, counting(name, fn))
+    try:
+        yield
+    finally:
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
+
+
+def _expected_b123(calls: dict) -> list:
+    return [3 * calls["detect_markers"],
+            calls["detect_markers"] + 3 * calls["track_markers"],
+            calls["mekf_step"]]
+
+
+def _e2e_run_slam(tmp: Path, frames, flags, tag: str):
+    """run_slam.main on the e2e bench's frames (one stream: a fleet's
+    streams are that sequence XORed in the low bits), with its
+    --track-every: the mean accepted detections a frame."""
+    import numpy as np
+    from aruco_slam_tpu_torch.apps import run_slam
+    from aruco_slam_tpu_torch.bench import e2e, synthetic
+    npz = tmp / f"e2e_{tag.replace(' ', '_').replace(',', '')}.npz"
+    # uncompressed: zlib over 128 1080p frames costs seconds
+    np.savez(npz, times=np.arange(len(frames)) / 30.0, images=frames,
+             camera_matrix=np.asarray(e2e.K),
+             dist_coeffs=np.asarray(e2e.DIST),
+             marker_size=np.float64(synthetic.make_wall_scene(
+                 num_markers=10, seed=0).marker_size))
+    extra = []
+    if "--track-every" in flags:
+        extra = ["--track-every", flags[flags.index("--track-every") + 1]]
+    res = run_slam.main(["--input", str(npz), "--platform", PLATFORM,
+                         "--trajectory", str(tmp / "e2e_t.txt"),
+                         "--map", str(tmp / "e2e_m.txt"), *extra])
+    npz.unlink()
+    return float(res.obs_mask.sum(1).mean())
+
+
+def _e2e_argv(flags) -> list:
+    return ["--frames", str(E2E_FRAMES), *flags, "--platform", PLATFORM]
+
+
+def phase_bench_e2e(tmp: Path, smi: str):
+    """bench/e2e.py in each of E2E_MODES at its defaults (128 rendered
+    1080p frames, chunk 16): the row; B1, B2 and B3 launched exactly as
+    the run's detection batches, tracked batches and filter steps call
+    for; detections a frame beside run_slam's on the same frames (equal
+    on the default mode). Returns ({path: launches}, {mode: row})."""
+    import numpy as np
+    from aruco_slam_tpu_torch.bench import e2e
+    e2e.CACHE_DIR = tmp
+    paths, rows = {}, {}
+    for tag, flags in E2E_MODES:
+        t0 = time.perf_counter()
+        calls = {}
+        _reset_counts()
+        with _counting_calls(calls):
+            row = e2e.main(_e2e_argv(flags))
+        launches = _counts()
+        want = _expected_b123(calls)
+        kind = "vr" if "--track-every" in flags else "orbit"
+        frames = np.load(tmp / f"aruco_slam_tpu_torch_e2e_{kind}_"
+                         f"{E2E_FRAMES}_10.npz")["frames"]
+        if "--degrade" in flags:
+            frames = e2e.degraded(frames, flags[flags.index("--degrade") + 1])
+        ref = _e2e_run_slam(tmp, frames, flags, tag)
+        log(f"[bench-e2e] {tag}: {json.dumps(row)}")
+        log(f"[bench-e2e] {tag}: launches {_b123(launches)} (B1/B2/B3), "
+            f"expected {want} from {calls}; detections a frame "
+            f"{row['mean_detections_per_frame']} against run_slam's "
+            f"{ref:.2f} on the same frames; {time.perf_counter() - t0:.1f} "
+            f"s on {smi}")
+        if _b123(launches) != want or min(want) <= 0:
+            raise AssertionError(f"bench-e2e {tag}: launches "
+                                 f"{_b123(launches)}, expected {want}")
+        if not row["value"] > 0 or not row["mean_detections_per_frame"] >= 3:
+            raise AssertionError(f"bench-e2e {tag}: row {row}")
+        if tag == "default" and abs(row["mean_detections_per_frame"]
+                                    - ref) > 0.01:
+            raise AssertionError(f"bench-e2e default: "
+                                 f"{row['mean_detections_per_frame']} "
+                                 f"detections a frame, run_slam {ref}")
+        paths[f"bench-e2e {tag}"] = launches
+        rows[tag] = row
+    return paths, rows
+
+
+def phase_detect_profile(smi: str) -> dict:
+    """bench/detect_profile.py at its defaults (16 frames, 4 reps): the
+    stages are the detector's, adding up to its total; B1 and B2
+    launched."""
+    from aruco_slam_tpu_torch.bench import detect_profile
+    from aruco_slam_tpu_torch.ops import detect
+    t0 = time.perf_counter()
+    calls = {}
+    _reset_counts()
+    with _counting_calls(calls):
+        row = detect_profile.main(["--platform", PLATFORM])
+    launches = _counts()
+    stages = list(detect.candidate_stage_names()) + ["slots+rest"]
+    total = sum(row[k] for k in stages)
+    log(f"[detect-profile] {json.dumps(row)}")
+    log(f"[detect-profile] stages add up to {total:.3f} of "
+        f"{row['total_ms']:.3f} ms a frame; launches {_b123(launches)}; "
+        f"{time.perf_counter() - t0:.1f} s on {smi}")
+    if list(row)[4:] != stages or abs(total - row["total_ms"]) > 0.02 \
+            or _b123(launches)[0] < 3 * calls["detect_markers"] \
+            or not launches["refine_corners"]:
+        raise AssertionError(f"detect-profile: {row}, {launches}")
+    return launches
+
+
+def phase_large_map(smi: str):
+    """bench/large_map.py at its defaults (512 markers, 512 raster
+    frames, batch 8, max-obs 48, the XLA-form update: no B3), then with
+    --cov-dtype bf16: the rows, the default run's ATE under ATE_BOUND,
+    peak device memory. Returns ({path: launches}, [(argv, row)])."""
+    import numpy as np
+    import torch
+    from aruco_slam_tpu_torch.bench import large_map
+    paths, rows = {}, []
+    for flags in ((), ("--cov-dtype", "bf16")):
+        t0 = time.perf_counter()
+        tag = "large-map" + "".join(f" {f}" for f in flags)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        argv = ["--markers", str(LARGE_MARKERS), "--frames",
+                str(LARGE_FRAMES), *flags, "--platform", PLATFORM]
+        row = large_map.main(argv)
+        launches = _counts()
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[large-map] {json.dumps(row)}")
+        log(f"[large-map] {tag}: launches {_b123(launches)}; peak device "
+            f"memory {peak / 2**30:.2f} GiB; "
+            f"{time.perf_counter() - t0:.1f} s on {smi}")
+        if _b123(launches)[2] or not np.isfinite(row["ate_m"]) \
+                or (not flags and not row["ate_m"] < ATE_BOUND):
+            raise AssertionError(f"{tag}: {row}, {launches}")
+        paths[tag] = launches
+        rows.append((argv, row))
+    return paths, rows
+
+
+def phase_headline(smi: str, e2e_rows: dict, lm_rows: list) -> dict:
+    """bench/headline.py: the single-stream pipeline (B3 once a frame)
+    and the 256-sequence batched one (the XLA-form update), with its
+    ride-along fields. Its e2e and large-map runs at the arguments that
+    [bench-e2e] and [large-map] ran in this call come from those runs'
+    rows (the same main, the same parsed arguments); the rest run here.
+    Returns the launches."""
+    from aruco_slam_tpu_torch.bench import e2e, headline, large_map
+    t0 = time.perf_counter()
+    ran = {_args_key(e2e, _e2e_argv(flags)): e2e_rows[tag]
+           for tag, flags in E2E_MODES}
+    ran.update({_args_key(large_map, argv): row for argv, row in lm_rows})
+    real = {mod: mod.main for mod in (e2e, large_map)}
+
+    def reusing(mod):
+        def main(argv=None):
+            key = _args_key(mod, argv)
+            return ran[key] if key in ran else real[mod](argv)
+        return main
+
+    calls = {}
+    _reset_counts()
+    for mod in real:
+        mod.main = reusing(mod)
+    try:
+        with _counting_calls(calls):
+            row = headline.main(["--platform", PLATFORM])
+    finally:
+        for mod, fn in real.items():
+            mod.main = fn
+    launches = _counts()
+    log(f"[headline] {json.dumps(row)}")
+    log(f"[headline] launches {_b123(launches)} (B3: the single stream's "
+        f"{headline.FRAMES} a call and the e2e ride-alongs'); "
+        f"{time.perf_counter() - t0:.1f} s on {smi}")
+    if not row["value"] > 0 or not row["single_stream_fps"] > 0 \
+            or not launches["fused_update"] \
+            or not row["large_map_ate_m"] < ATE_BOUND:
+        raise AssertionError(f"headline: {row}, {launches}")
+    return launches
+
+
+def _args_key(mod, argv) -> tuple:
+    """A bench main's parsed arguments, as a dict key."""
+    return tuple(sorted(vars(mod._parser().parse_args(argv)).items()))
+
+
+def _capture_bench_updates(dev):
+    """B3's inputs at the bench shapes: the large map's filter (N 1545,
+    M 144) after B3_CAPTURE_FRAMES of its survey, and the headline's 256
+    sequences (N 198, M 48) after HEADLINE_CAPTURE_FRAMES frames, each
+    run with the kernel; with each, the XLA-form configuration its
+    driver runs (update_kernel=False, s_solver="ns", "mixed")."""
+    import numpy as np
+    import torch
+    from aruco_slam_tpu_torch.bench import e2e, headline, large_map
+    from aruco_slam_tpu_torch.bench.pipeline import make_pipeline
+    from aruco_slam_tpu_torch.bench import synthetic
+    from aruco_slam_tpu_torch.filters import MekfConfig, cuda_mekf, init_state
+    from aruco_slam_tpu_torch.parallel.multi_slam import stack_states
+    last = []
+    real = cuda_mekf.fused_update
+
+    def record(*args, **kw):
+        last[:] = [[a.clone() for a in args]]
+        return real(*args, **kw)
+    # the wrapper counts its launches on the name it is called by; these
+    # capture runs are not a path's, so their count is dropped
+    record.launches = 0
+
+    cam, cam_cpu = e2e.camera(dev), e2e.camera()
+    scene, _, corners, mask = large_map.survey(LARGE_MARKERS, LARGE_FRAMES,
+                                               cam_cpu)
+    xla_big = large_map.filter_config(LARGE_MARKERS, 48, "mixed", "f32")
+    hscene = synthetic.make_wall_scene(num_markers=headline.MARKERS, seed=0)
+    hc, hm = synthetic.observe_corners(
+        hscene, synthetic.make_orbit_trajectory(num_frames=headline.FRAMES),
+        cam_cpu, headline.CAPACITY, noise_px=0.3, seed=1)
+    rng = np.random.default_rng(7)
+    n = HEADLINE_CAPTURE_FRAMES
+    hb = hc[None, :n] + rng.normal(0, 0.3, (headline.BATCH, n)
+                                   + hc.shape[1:])
+    xla_head = MekfConfig(capacity=headline.CAPACITY)._replace(
+        update_kernel=False, s_solver="ns", matmul_precision="mixed")
+    out = []
+    cuda_mekf.fused_update = record
+    try:
+        for cfg, sc, cs, ms, streams in (
+                (xla_big, scene, corners[:B3_CAPTURE_FRAMES],
+                 mask[:B3_CAPTURE_FRAMES], 0),
+                (xla_head, hscene, hb, np.broadcast_to(
+                    hm[:n], (headline.BATCH, n, hm.shape[1])),
+                 headline.BATCH)):
+            kcfg = cfg._replace(update_kernel=True)
+            state = init_state(kcfg, device=dev)
+            if streams:
+                state = stack_states([state] * streams)
+            make_pipeline(cam, sc.marker_size, kcfg)(
+                state, torch.tensor(cs, dtype=torch.float32, device=dev),
+                torch.tensor(np.ascontiguousarray(ms), device=dev))
+            out.append((cfg, last[0]))
+    finally:
+        cuda_mekf.fused_update = real
+    return out
+
+
+def _b3_bench_shapes(dev, smi: str) -> list:
+    """B3 at the bench shapes no earlier chip run measured, each held
+    against its plain version (B3_TOL, P' exactly symmetric) and timed
+    beside the plain chain and the XLA-form update its driver runs."""
+    import numpy as np
+    import torch
+    from aruco_slam_tpu_torch.filters import cuda_mekf
+    from aruco_slam_tpu_torch.filters import mekf
+    shapes = []
+    for cfg, args in _capture_bench_updates(dev):
+        got = cuda_mekf.fused_update(*args)
+        want = cuda_mekf.fused_update_plain(*args)
+        torch.cuda.synchronize()
+        err = _b3_err(got, want)
+        sym = bool(torch.equal(got[1], got[1].transpose(-1, -2)))
+        t = timings(lambda: cuda_mekf.fused_update(*args),
+                    lambda: cuda_mekf.fused_update_plain(*args))
+
+        def xla(args=args, cfg=cfg):
+            return mekf._update_xla_form(cfg, *args)
+        x_err = _b3_err(xla(), want)
+        x_ms, x_dev = call_ms(xla), device_ms(xla)
+        batched = args[0].dim() == 3
+        s = args[0].shape[0] if batched else 1
+        n, m = args[0].shape[-1], args[1].shape[-2]
+        shape = (f"S={s} N={n} M={m}" if batched else f"N={n} M={m}")
+        b_ms, b_by = _b3_bound(s, n, m)
+        form = cuda_mekf.newton_schulz_form(m) if dev.type == "cuda" \
+            else None
+        faster = "kernel" if t["device_ms"] < x_dev else "XLA-form chain"
+        log(f"[B3] fused_update {shape} (bench): max |kernel - plain| "
+            f"{err:.3e} (tol {B3_TOL}); symmetric {sym}; {_fmt_t(t)}; the "
+            f"XLA-form update its driver runs (s_solver ns, "
+            f"{cfg.matmul_precision}) {x_ms:.3f} ms a call ({x_dev:.3f} "
+            f"device), {x_err:.3e} from the plain chain; {faster} faster "
+            f"on device; {form} form; bound {b_ms:.4f} ms ({b_by}) on {smi}")
+        if not np.isfinite(err) or err > B3_TOL or not sym:
+            raise AssertionError(f"B3 differs from its plain version at "
+                                 f"{shape}: {err}, symmetric {sym}")
+        shapes.append({"shape": shape, "path": "bench", "form": form, **t,
+                       "xla_form_ms": x_ms, "xla_form_device_ms": x_dev,
+                       "xla_form_precision": cfg.matmul_precision,
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "max_abs_err": err})
+    return shapes
+
+
 def main() -> int:
     import torch
     name, smi = phase_device()
@@ -2814,6 +3159,11 @@ def main() -> int:
     kernels += [_b3(captured, captured_rot, captured_rot32, dev),
                 _b4(rng, dev),
                 _b5(frames, corners, mask, rng, dev)]
+    b3_bench = _b3_bench_shapes(dev, smi)
+    _elapsed("the kernels' checks")
+    kernels[2]["shapes"] += b3_bench
+    kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"],
+                                    *(c["max_abs_err"] for c in b3_bench))
     # B5's user path is the calibration CLI: its line carries the CLI's
     # batched call (all views' chessboard corners)
     b5_cal = _b5_calibration(cviews, chess, np.random.default_rng(SEED + 1),
@@ -2861,6 +3211,7 @@ def main() -> int:
                                               smi),
                  "recycling": phase_recycling(Path(tmp), dev)}
         phase_prefetch(npz, main_res, dev)
+        _elapsed("the single-stream paths")
         dist = np.asarray(app.dist_coeffs)
         seqs = [(f, traj.times, gt, k, dist)
                 for f, gt in ((frames, traj.cam_t),
@@ -2872,24 +3223,30 @@ def main() -> int:
             Path(tmp), fleet_paths, CHUNK, main_fps, smi)
         paths.update(phase_fleet_streaming(Path(tmp), fleet_paths, seqs,
                                            full_warm, smi))
+        _elapsed("the fleets")
         paths["factorgraph"] = phase_factorgraph(argv, traj.cam_t, main_fps,
                                                  smi)
         phase_factorgraph_online(dev, smi)
+        _elapsed("the online graph")
         paths["offline"], _, ingested = phase_offline(npz, Path(tmp), smi)
+        _elapsed("the factor graph and offline")
         fleet_ba = phase_fleet_ba(Path(tmp), fleet_paths, smi)
         paths["fleet-ba 1x1"] = fleet_ba["fleet-ba 1x1"]
         paths["fleet-ba 2x2"] = fleet_ba["fleet-ba 2x2"]
         _reset_counts()
         sharded = phase_sharded_ba(ingested, smi)
+        _elapsed("the fleet and sharded solves")
         paths["sharded-ba"] = _counts()
         ranks = phase_dist(npz, Path(tmp), ingested,
                            sharded["f64_unsharded"], smi)
         paths.update({k: v for k, v in ranks.items()
                       if k.startswith("dist rank")})
+        _elapsed("distribution")
         paths["calibrate"] = phase_calibrate(Path(tmp), board, cviews, dev,
                                              smi)
         paths["checkpoint-resume"] = phase_checkpoint(npz, Path(tmp),
-                                                      main_res)
+                                                      main_res, smi)
+        _elapsed("calibration and checkpoints")
         phase_profile(npz, Path(tmp), main_res)
         phase_make_synthetic(Path(tmp), smi)
         paths["viz"] = phase_viz(npz, Path(tmp), argv, main_res, main_fps,
@@ -2899,12 +3256,21 @@ def main() -> int:
         paths["degraded"] = phase_degraded(
             frames, traj, cam, scene, k, np.asarray(app.dist_coeffs),
             Path(tmp), main_res, main_fps, smi)
+        _elapsed("the viewers and degraded frames")
+        # the bench drivers: launches over each whole bench run
+        bench, e2e_rows = phase_bench_e2e(Path(tmp), smi)
+        bench["detect-profile"] = phase_detect_profile(smi)
+        lm_paths, lm_rows = phase_large_map(smi)
+        bench.update(lm_paths)
+        bench["headline"] = phase_headline(smi, e2e_rows, lm_rows)
+        _elapsed("the bench drivers")
     # launches: the main path's, or for B4 and B5 (which the main path
     # does not run) their own path's: B5's is the calibration CLI
     own = {"flood_labels": "stencil-only", "refine_offsets": "calibrate"}
     for k in kernels:
         k["launches"] = paths[own.get(k["name"], "main")][k["name"]]
         k["launches_per_chunk"] = {p: c[k["name"]] for p, c in paths.items()}
+        k["launches_bench"] = {p: c[k["name"]] for p, c in bench.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -701,6 +701,107 @@ def test_graph_solves_read_nothing_back(device, dtype):
     assert bool(torch.isfinite(cost)) and int(state.num_poses) == 21
 
 
+@pytest.fixture(scope="module")
+def large_map_state():
+    """The large map's ingested graph (bench/large_map.py: 512 markers, a
+    512-frame raster, f32, the PnP of its noisy corners) on the card,
+    or None without one."""
+    if not torch.cuda.is_available():
+        return None
+    from aruco_slam_tpu_torch import graph
+    from aruco_slam_tpu_torch.bench import e2e, large_map
+    from aruco_slam_tpu_torch.ops import pnp
+    dev = torch.device("cuda")
+    scene, _, corners, mask = large_map.survey(512, 512, e2e.camera())
+    res = pnp.solve_square_pnp(e2e.camera(dev), torch.tensor(
+        corners, dtype=torch.float32, device=dev), scene.marker_size)
+    ok = torch.tensor(mask, device=dev) & (res.err < 3.0)
+    cfg = graph.GraphConfig(max_poses=514, max_landmarks=512,
+                            max_factors=int(ok.sum()) + 512 + 64,
+                            pixel_sigma=0.3, huber_delta=2.0)
+    state = graph.init_graph(cfg, device=dev)
+    for i in range(512):
+        state = graph.add_frame(cfg, state, res.t_cl[i], ok[i])
+    return cfg, state
+
+
+def _bit_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("solve", ["batch_optimize", "optimize_window",
+                                   "sharded local 2"])
+def test_graph_solves_repeat_bit_for_bit(device, large_map_state, solve):
+    """The large map's solve run twice from the same state on the card,
+    in the default mode a user runs (no torch.use_deterministic_algorithms):
+    the graph's sums are in a fixed order, so the estimates and the cost
+    are bit-equal; also under torch.func.vmap, as `parallel.sharded_ba`
+    runs `_linearize` over two local mesh devices."""
+    from aruco_slam_tpu_torch import graph
+    from aruco_slam_tpu_torch.parallel import dist, sharded_ba
+    assert not torch.are_deterministic_algorithms_enabled()
+    cfg, state = large_map_state
+    run = {"batch_optimize": lambda: graph.batch_optimize(cfg, state,
+                                                          iters=5),
+           "optimize_window": lambda: graph.optimize_window(
+               cfg, state, window=64, iters=3),
+           "sharded local 2": lambda: sharded_ba.sharded_batch_optimize(
+               cfg, state, dist.make_mesh(local_devices=2), iters=5)}[solve]
+    (a, cost_a), (b, cost_b) = run(), run()
+    assert torch.equal(cost_a, cost_b) and bool(torch.isfinite(cost_a))
+    assert _bit_equal((a.pose_q, a.pose_t, a.lm), (b.pose_q, b.pose_t, b.lm))
+
+
+def test_marginalize_poses_repeats_bit_for_bit(device):
+    """`marginalize_poses` (its sums over the dropped poses' factors)
+    twice from the same f32 state on the card: bit-equal priors."""
+    from aruco_slam_tpu_torch import graph
+    obs, cfg = _graph_orbit(40, 42)
+    cfg = cfg._replace(dtype=torch.float32)
+    state, _ = graph.batch_optimize(cfg, _graph_ingest(cfg, obs, device, 40),
+                                    iters=3)
+    a = graph.marginalize_poses(cfg, state, 16)
+    b = graph.marginalize_poses(cfg, state, 16)
+    assert _bit_equal(a, b)
+
+
+@pytest.mark.parametrize("streams", [0, 4])
+def test_make_pipeline_cuda_matches_cpu(device, streams):
+    """bench/pipeline.make_pipeline (the headline's corners, 48 frames in
+    chunks of 16, the default filter: B3 once a frame on the card, its
+    plain version on the CPU), one stream and four at once: the
+    trajectories within 2e-3 m (tests/test_torch_cuda.py's slice bound:
+    the same math summed in other orders)."""
+    from aruco_slam_tpu_torch.bench import e2e, synthetic
+    from aruco_slam_tpu_torch.bench.pipeline import make_pipeline
+    from aruco_slam_tpu_torch.filters import MekfConfig, init_state
+    from aruco_slam_tpu_torch.parallel.multi_slam import stack_states
+    scene = synthetic.make_wall_scene(num_markers=8, seed=0)
+    corners, mask = synthetic.observe_corners(
+        scene, synthetic.make_orbit_trajectory(num_frames=48), e2e.camera(),
+        64, noise_px=0.3, seed=1)
+    if streams:
+        rng = np.random.default_rng(7)
+        corners = corners[None] + rng.normal(0, 0.3, (streams,)
+                                             + corners.shape)
+        mask = np.broadcast_to(mask, (streams,) + mask.shape).copy()
+    cfg = MekfConfig(capacity=64)
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        state = init_state(cfg, device=dev)
+        if streams:
+            state = stack_states([state] * streams)
+        before = cuda_mekf.fused_update.launches
+        _, traj = make_pipeline(e2e.camera(dev), scene.marker_size, cfg)(
+            state, torch.tensor(corners, dtype=torch.float32, device=dev),
+            torch.tensor(mask, device=dev))
+        out[dev.type] = (traj.cpu().numpy(),
+                         cuda_mekf.fused_update.launches - before)
+    assert out["cuda"][1] == 48 and out["cpu"][1] == 0
+    assert np.isfinite(out["cuda"][0]).all()
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], atol=2e-3)
+
+
 @pytest.mark.parametrize("local", [1, 2, 4])
 def test_sharded_lm_cuda_matches_cpu_reads_nothing_back(device, local,
                                                          monkeypatch):

@@ -147,6 +147,27 @@ def test_state_round_trip(mid_states):
     assert st32.lm.dtype == torch.float32 and st32.f_lm.dtype == torch.int32
 
 
+def test_states_with_indices_out_of_range_are_refused(mid_states):
+    """The solves sum by the factors' pose and landmark indices without a
+    range check of their own: a state that enters with an index outside
+    the capacities (state_from_numpy, `check_indices` after a checkpoint
+    load) raises, and so does a frame with more slots than landmarks."""
+    a = dict(mid_states[True, 1.0])
+    _, tc = configs(with_rotations=True)
+    for field, bad in (("f_lm", tc.max_landmarks), ("f_pose", -1)):
+        b = dict(a)
+        b[field] = a[field].copy()
+        b[field][0] = bad
+        with pytest.raises(ValueError, match=field):
+            tba.state_from_numpy(tc, b)
+    st = tba.state_from_numpy(tc, a)
+    assert tba.check_indices(tc, st) is st
+    c = tc.max_landmarks + 1
+    with pytest.raises(ValueError, match="max_landmarks"):
+        tba.add_frame(tc, st, torch.zeros(c, 3, dtype=tc.dtype),
+                      torch.ones(c, dtype=torch.bool))
+
+
 @pytest.mark.parametrize("case", ["point", "rotations", "pixel_sigma",
                                   "overflow"])
 def test_add_frame_matches_jax(orbit, case):

@@ -369,6 +369,11 @@ def test_port_imports_no_jax():
         "import aruco_slam_tpu_torch.viz.video\n"
         "import aruco_slam_tpu_torch.apps.sinks\n"
         "import aruco_slam_tpu_torch.bench.degrade\n"
+        "import aruco_slam_tpu_torch.bench.pipeline\n"
+        "import aruco_slam_tpu_torch.bench.e2e\n"
+        "import aruco_slam_tpu_torch.bench.detect_profile\n"
+        "import aruco_slam_tpu_torch.bench.large_map\n"
+        "import aruco_slam_tpu_torch.bench.headline\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'aruco_slam_tpu', 'cv2', 'imageio', "
         "'matplotlib', 'PIL', 'av'))\n"
