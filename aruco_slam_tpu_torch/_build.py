@@ -11,11 +11,17 @@ kernel call, never at import (the CPU-only test host has no nvcc).
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; `call` raises on anything but 0, so a launch
 the CUDA runtime refused (too many threads, too much shared memory) is an
-error at its call site instead of a silent no-op.
+error at its call site instead of a silent no-op. The C side launches on
+the runtime's current device (and sets its kernels' attributes there),
+so every wrapper makes its call inside `on_device`, which makes its
+tensors' card current and hands over that card's stream: with streams on
+several cards in one process, a launch never runs on another card than
+the pointers it is given.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -140,9 +146,19 @@ def call(fn, *args) -> None:
         raise RuntimeError(f"{fn.__name__}: CUDA error {err} ({msg})")
 
 
-def stream() -> ctypes.c_void_p:
-    """PyTorch's current stream on the current device."""
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+@contextlib.contextmanager
+def on_device(*tensors: torch.Tensor):
+    """Make the card of a launch's tensor arguments the current device
+    for the block and yield that card's current stream (the argument the
+    C entry point launches on). Arguments on more than one device raise
+    ValueError before anything launches."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError("kernel arguments on more than one device: "
+                         f"{sorted(map(str, devices))}")
+    device, = devices
+    with torch.cuda.device(device):
+        yield ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -118,12 +118,14 @@ def _wait_all(procs) -> list[int]:
         time.sleep(0.05)
 
 
-def _spawn(cmd: list[str], n: int, coordinator: str) -> list[int]:
+def _spawn(cmd: list[str], n: int, coordinator: str,
+           stdout=None) -> list[int]:
     """Run ``cmd`` in n OS processes joined as one run: each gets its
     SLAM_* environment (`dist.initialize` reads it), the repository on
     PYTHONPATH and its share of the host's cores as OpenMP threads
-    (oversubscribed spinning threads stall small ops). Returns their
-    exit codes; the first that fails ends the others."""
+    (oversubscribed spinning threads stall small ops); ``stdout``, one
+    open file a process, takes their output (default: this process's).
+    Returns their exit codes; the first that fails ends the others."""
     root = str(Path(__file__).resolve().parents[2])
     path = os.environ.get("PYTHONPATH")
     threads = str(max(1, len(os.sched_getaffinity(0)) // n))
@@ -134,7 +136,8 @@ def _spawn(cmd: list[str], n: int, coordinator: str) -> list[int]:
                        SLAM_NUM_PROCESSES=str(n), SLAM_PROCESS_ID=str(pid),
                        PYTHONPATH=root + (os.pathsep + path if path else ""))
             env.setdefault("OMP_NUM_THREADS", threads)
-            procs.append(subprocess.Popen(cmd, env=env))
+            procs.append(subprocess.Popen(
+                cmd, env=env, stdout=None if stdout is None else stdout[pid]))
         return _wait_all(procs)
     finally:
         for p in procs:

@@ -74,7 +74,8 @@ from aruco_slam_tpu_torch.config import SlamAppConfig
 from aruco_slam_tpu_torch.core import camera as cam_mod
 from aruco_slam_tpu_torch.filters import mekf as mekf_mod
 from aruco_slam_tpu_torch.filters import (
-    FrameObservations, MekfConfig, init_state, mekf_scan, mekf_step)
+    FrameObservations, MekfConfig, MekfState, init_state, mekf_scan,
+    mekf_step)
 from aruco_slam_tpu_torch.graph import (
     GraphConfig, add_frame, check_indices, init_graph, landmark_covariances,
     marginalize_poses, optimize_window)
@@ -83,8 +84,7 @@ from aruco_slam_tpu_torch.io import (
     save_map, video_frames)
 from aruco_slam_tpu_torch.ops import detect, pnp
 from aruco_slam_tpu_torch.parallel import dist as pdist
-from aruco_slam_tpu_torch.parallel.multi_slam import (
-    batched_mekf_scan, stack_states)
+from aruco_slam_tpu_torch.parallel import multi_slam
 from aruco_slam_tpu_torch.utils.checkpoint import (
     load_checkpoint, save_checkpoint)
 from aruco_slam_tpu_torch.utils.profiling import StageTimer, device_trace
@@ -723,7 +723,11 @@ def run_multi_stream(cfg: SlamAppConfig, inputs: list[str], calib_dir,
     ``cfg.rescue_cohorts`` staggered cohorts), whose carry crosses the
     chunks; its tail chunk is not padded. PnP runs on all S·T frames and
     the S filters step together (`parallel.multi_slam.batched_mekf_scan`,
-    one fused-update launch per frame). Outputs land in per-stream files
+    one fused-update launch per frame). As in JAX, with a stream mesh
+    (`multi_slam.stream_mesh`: every card of the process) of ndev > 1
+    entries that divide S, the filter scan alone is sharded over them and
+    its states come back to ``device``; the front end stays on
+    ``device``. Outputs land in per-stream files
     (trajectory_s0.txt, map_s0.txt, ...); with a shared ``--max-obs``
     each stream matches its single-stream run (with tracking: a stream
     of cohort 0, or any stream without cohorts, whose single-stream run
@@ -748,8 +752,15 @@ def run_multi_stream(cfg: SlamAppConfig, inputs: list[str], calib_dir,
     dcfg = _detector_config(cfg)
     seconds["load"] = time.perf_counter() - t0
 
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
+    mesh = multi_slam.stream_mesh(device)
+    ndev = len(mesh)
+    if not (ndev > 1 and s % ndev == 0):
+        mesh = None
+    # peak memory: the sum over every card the run touches
+    cards = list(dict.fromkeys(d for d in [device, *(mesh or ())]
+                               if d.type == "cuda"))
+    for card in cards:
+        torch.cuda.reset_peak_memory_stats(card)
     ke = cfg.track_every
     if ke:
         step = detect.streaming_step(dcfg, ke, streams=s, mapped=True,
@@ -797,16 +808,20 @@ def run_multi_stream(cfg: SlamAppConfig, inputs: list[str], calib_dir,
     max_obs = _auto_max_obs(cfg, mask_np, dcfg.capacity)
     fcfg = _mekf_config(cfg, dcfg.capacity, max_obs,
                         cfg.filter == "mekf_rotations", cam)
-    states = stack_states([init_state(fcfg, device=device)] * s)
-    states, trajs = batched_mekf_scan(
-        fcfg, states, FrameObservations(t_cl, q_cl, mask, amb))
+    states = multi_slam.stack_states([init_state(fcfg, device=device)] * s)
+    if mesh is not None:
+        print(f"sharding {s} streams over {ndev} devices")
+    states, trajs = multi_slam.batched_mekf_scan(
+        fcfg, states, FrameObservations(t_cl, q_cl, mask, amb), mesh=mesh)
+    states = MekfState(*(x.to(device) for x in states))
     trajs = trajs.cpu().numpy()
     _sync(device)
     seconds["filter"] = time.perf_counter() - t0
     _warn_dropped(states.dropped_obs.cpu().numpy(), fcfg.max_obs)
     peak = ""
-    if device.type == "cuda":
-        seconds["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    if cards:
+        seconds["peak_bytes"] = sum(torch.cuda.max_memory_allocated(card)
+                                    for card in cards)
         peak = f", peak device memory {seconds['peak_bytes'] / 2**30:.2f} GiB"
     print(f"fleet: {s} streams x {tlen} frames, front end "
           f"{seconds['front_end']:.3f}s (input load {seconds['load']:.3f}s),"

@@ -114,9 +114,6 @@ def _launch(cov, h, r_diag, resid, ns_iters, form=0, marks=None,
     for name, t, nd in zip(("cov", "h", "r_diag", "resid"), args,
                            (2, 2, 1, 1)):
         _build.check_cuda(name, t, torch.float32, nd + batched)
-        if t.device != cov.device:
-            raise ValueError(f"fused_update: {name} on {t.device}, cov on "
-                             f"{cov.device}")
     cov, h, r_diag, resid = args
     streams = cov.shape[0] if batched else 1
     n = cov.shape[-1]
@@ -132,8 +129,10 @@ def _launch(cov, h, r_diag, resid, ns_iters, form=0, marks=None,
                          + [ctypes.c_int] * 5 + [ctypes.c_void_p,
                                                  ctypes.c_int,
                                                  ctypes.c_void_p])
-    _build.call(fn, _build.ptr(cov), _build.ptr(h), _build.ptr(r_diag),
-                _build.ptr(resid), _build.ptr(inn), _build.ptr(new_cov),
-                _build.ptr(scratch), streams, n, m, ns_iters, form, marks,
-                n_marks, _build.stream())
+    with _build.on_device(cov, h, r_diag, resid, inn, new_cov,
+                          scratch) as stream:
+        _build.call(fn, _build.ptr(cov), _build.ptr(h), _build.ptr(r_diag),
+                    _build.ptr(resid), _build.ptr(inn), _build.ptr(new_cov),
+                    _build.ptr(scratch), streams, n, m, ns_iters, form, marks,
+                    n_marks, stream)
     return inn, new_cov

@@ -178,8 +178,9 @@ def _launch_flood(fg: torch.Tensor, iters: int,
         fn = _build.function("flood_labels_split",
                              args + [ctypes.c_int, ctypes.c_void_p])
         extra = (per_launch,)
-    _build.call(fn, _build.ptr(fg_u8), _build.ptr(labels),
-                _build.ptr(scratch), b, h, w, iters, *extra, _build.stream())
+    with _build.on_device(fg_u8, labels, scratch) as stream:
+        _build.call(fn, _build.ptr(fg_u8), _build.ptr(labels),
+                    _build.ptr(scratch), b, h, w, iters, *extra, stream)
     return labels
 
 
@@ -223,7 +224,8 @@ def _launch(fg: torch.Tensor, iters: int, scan_rounds: int, marks=None,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
-    _build.call(fn, _build.ptr(fg_u8), _build.ptr(labels),
-                _build.ptr(scratch), b, h, w, iters, scan_rounds, marks,
-                n_marks, _build.stream())
+    with _build.on_device(fg_u8, labels, scratch) as stream:
+        _build.call(fn, _build.ptr(fg_u8), _build.ptr(labels),
+                    _build.ptr(scratch), b, h, w, iters, scan_rounds, marks,
+                    n_marks, stream)
     return labels

@@ -201,13 +201,11 @@ def _launch(image, corners, schedule):
     image = image.contiguous()
     corners = corners.to(torch.float32).contiguous()
     _build.check_cuda("image", image, image.dtype, 3)
-    if corners.device != image.device:
-        raise ValueError("refine_corners: image and corners on different "
-                         "devices")
     out = torch.empty_like(corners)
-    _build.call(_build.function(entry, _ARGTYPES[entry]), image.data_ptr(),
-                corners.data_ptr(), out.data_ptr(), b, corners.shape[1], h, w,
-                rad, *args, _build.stream())
+    with _build.on_device(image, corners, out) as stream:
+        _build.call(_build.function(entry, _ARGTYPES[entry]),
+                    _build.ptr(image), _build.ptr(corners), _build.ptr(out),
+                    b, corners.shape[1], h, w, rad, *args, stream)
     refine_corners.launches += 1
     return out
 
@@ -235,13 +233,12 @@ def refine_offsets(patches: torch.Tensor, c0: torch.Tensor,
     c0 = c0.contiguous()
     _build.check_cuda("patches", patches, torch.float32, 3)
     _build.check_cuda("c0", c0, torch.float32, 2)
-    if c0.device != patches.device:
-        raise ValueError("refine_offsets: patches and c0 on different "
-                         "devices")
     out = torch.empty_like(c0)
-    _build.call(_build.function("subpix_offsets", _ARGTYPES["subpix_offsets"]),
-                patches.data_ptr(), c0.data_ptr(), out.data_ptr(), n, rad,
-                *args, _build.stream())
+    with _build.on_device(patches, c0, out) as stream:
+        _build.call(_build.function("subpix_offsets",
+                                    _ARGTYPES["subpix_offsets"]),
+                    _build.ptr(patches), _build.ptr(c0), _build.ptr(out), n,
+                    rad, *args, stream)
     refine_offsets.launches += 1
     return out
 

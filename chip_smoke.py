@@ -197,15 +197,35 @@ non-zero, and no result line is printed):
                 frame) and 256 sequences, with its ride-along fields; its
                 e2e and large-map runs at [bench-e2e]'s and [large-map]'s
                 arguments reuse those rows.
+32. fleet-sharded — `run_slam.main` on the four distinct fleet inputs
+                with the stream mesh forced to the card twice (run_slam's
+                own `multi_slam.stream_mesh`, doubled): JAX's `sharding 4
+                streams over 2 devices` line, each stream within 1e-4 m
+                of the unsharded fleet's, B1 3, B2 1 and B3 twice a frame
+                (a shard each); warm aggregate frames/s beside [fleet]'s.
+33. entry      — `entry.entry()`'s frame step on the card, two frames: B3
+                once a step, pose and landmarks within 1e-4 of the CPU's.
+34. dryrun     — `entry.dryrun_multichip(4)` and `(8)`: JAX's checks and
+                summary lines; B1 and B2 in the image step, B3 once a
+                frame a shard.
+35. scaling    — `bench/scaling.py` at its defaults (the sweep over 1, 2,
+                4 and 8 mesh slots: 256 frames, 32 markers, 10
+                iterations, 3 reps), `--fleet 2x2`, `--processes 2` (two
+                ranks on the card over Gloo) and `--ingest 2` (64
+                frames): each row, the workers' launch counts (run as
+                `chip_smoke.py --scaling-child DIR`).
 
 The line before the last is {"kernels": [...]} (each with its launches
 on the main path, or on its own path for B4 and B5 (the calibration
 CLI's, whose shapes B5's times are at), and its launches
 per 32-frame chunk on every path (`degraded`: the clutter run's): the
 fleet-ba runs hold four
-sequences of one chunk each, the dist ranks one 16-frame chunk each);
+sequences of one chunk each, the dist ranks one 16-frame chunk each;
+`fleet-sharded` four streams of one chunk; `entry` two frames; `dryrun`
+both dry runs; `ingest` one chunk of a `--ingest 2` rank);
 `launches_bench` counts each bench driver's launches over its whole
-run (warm call, timed reps and stage split); the last line is {"ok":
+run (warm call, timed reps and stage split; `scaling ...` each worker
+process of bench/scaling.py); the last line is {"ok":
 true, "device": {...}}. Imports nothing of JAX
 and nothing of the JAX package (aruco_slam_tpu).
 """
@@ -1251,10 +1271,11 @@ def _fleet_argv(tmp: Path, paths, tag: str, *flags) -> list[str]:
             "--map", str(tmp / f"{tag}_map.txt"), *flags]
 
 
-def _fleet_warm(argv, tlen: int, tag: str, smi: str) -> dict:
-    """A warm fleet run: aggregate frames/s (streams x frames over the
-    wall time), its stage seconds (load, front end less load, filter)
-    and peak device memory."""
+def _fleet_warm(argv, tlen: int, tag: str, smi: str,
+                streams: int = STREAMS) -> dict:
+    """A warm fleet run of ``streams`` streams: aggregate frames/s
+    (streams x frames over the wall time), its stage seconds (load,
+    front end less load, filter) and peak device memory."""
     import torch
     from aruco_slam_tpu_torch.apps import run_slam
     torch.cuda.synchronize()
@@ -1263,13 +1284,13 @@ def _fleet_warm(argv, tlen: int, tag: str, smi: str) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     sec = warm[0].seconds
-    out = {"fps": STREAMS * tlen / dt, "wall_s": dt, "load_s": sec["load"],
+    out = {"fps": streams * tlen / dt, "wall_s": dt, "load_s": sec["load"],
            "front_end_less_load_s": sec["front_end"] - sec["load"],
            "filter_s": sec["filter"], "peak_bytes": sec.get("peak_bytes")}
     peak = out["peak_bytes"]
-    log(f"[{tag}] warm run: {STREAMS} x {tlen} frames {SIZE[0]}x{SIZE[1]} "
+    log(f"[{tag}] warm run: {streams} x {tlen} frames {SIZE[0]}x{SIZE[1]} "
         f"in {dt:.3f} s = {out['fps']:.2f} frames/s aggregate "
-        f"({out['fps'] / STREAMS:.2f} per stream; load {out['load_s']:.3f} "
+        f"({out['fps'] / streams:.2f} per stream; load {out['load_s']:.3f} "
         f"s, front end less load {out['front_end_less_load_s']:.3f} s, "
         f"filter {out['filter_s']:.3f} s; peak device memory "
         f"{'not measured' if peak is None else f'{peak / 2**30:.2f} GiB'}) "
@@ -1326,7 +1347,200 @@ def phase_fleet(tmp: Path, paths, tlen: int, main_fps: float, smi: str):
     warm = _fleet_warm(argv, tlen, "fleet", smi)
     log(f"[fleet] warm {warm['fps']:.2f} frames/s aggregate vs "
         f"{main_fps:.2f} frames/s for the single-stream main path, same call")
-    return launches, warm
+    return launches, warm, fleet
+
+
+def phase_fleet_sharded(tmp: Path, paths, tlen: int, fleet, full_warm: dict,
+                        smi: str):
+    """run_slam on the distinct fleet inputs (one stream each) with the
+    stream mesh forced to the card twice: `multi_slam.stream_mesh`, which
+    run_slam calls, doubled, as two cards would give. JAX's sharding
+    line; each stream within FLEET_TOL of the unsharded [fleet] run's
+    stream of the same input; B1 3 and B2 1 (the front end's one
+    detection batch, unsharded as in JAX) and B3 twice a frame (once a
+    shard). Warm: aggregate frames/s beside [fleet]'s."""
+    import io
+    import numpy as np
+    from aruco_slam_tpu_torch.apps import run_slam
+    from aruco_slam_tpu_torch.parallel import multi_slam
+    n = len(paths)
+    argv = ["--input", ",".join(map(str, paths)), "--platform", PLATFORM,
+            "--max-obs", MAX_OBS, "--trajectory",
+            str(tmp / "fleet_sharded.txt"), "--map",
+            str(tmp / "fleet_sharded_map.txt")]
+    real = multi_slam.stream_mesh
+    multi_slam.stream_mesh = lambda device: real(device) * 2
+    try:
+        _reset_counts()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            sharded = run_slam.main(argv)
+        launches = _counts()
+        printed = out.getvalue()
+        log(printed.rstrip())
+        line = f"sharding {n} streams over 2 devices"
+        if line not in printed:
+            raise AssertionError(f"fleet-sharded: no '{line}' line")
+        worst = max(float(np.abs(sharded[i].cam_traj
+                                 - fleet[i].cam_traj).max())
+                    for i in range(n))
+        log(f"[fleet-sharded] {n} streams x {tlen} frames over a stream mesh "
+            f"of 2 shards on the one card: launches in the run {launches} "
+            f"(expected B1 3, B2 1, B3 {2 * tlen}); max |sharded - "
+            f"unsharded fleet| {worst:.3e} m (tol {FLEET_TOL})")
+        if _b123(launches) != [3, 1, 2 * tlen] or not worst <= FLEET_TOL:
+            raise AssertionError(f"fleet-sharded: B1/B2/B3 "
+                                 f"{_b123(launches)}, {worst} m from the "
+                                 "unsharded fleet")
+        warm = _fleet_warm(argv, tlen, "fleet-sharded", smi, streams=n)
+    finally:
+        multi_slam.stream_mesh = real
+    log(f"[fleet-sharded] warm {warm['fps']:.2f} frames/s aggregate ({n} "
+        f"streams, 2 shards on one card) beside [fleet]'s "
+        f"{full_warm['fps']:.2f} ({STREAMS} streams, one batch), same call: "
+        "two shards on one card are mechanics, not speed")
+    return launches
+
+
+def _entry_frames():
+    """Frames 0 and 1 of `entry()`'s orbit: corners (2, 64, 4, 2) f32 and
+    masks (2, 64), made as entry() makes frame 0."""
+    import numpy as np
+    from aruco_slam_tpu_torch import entry
+    from aruco_slam_tpu_torch.bench import synthetic
+    from aruco_slam_tpu_torch.core import camera as cam_mod
+    corners, mask = synthetic.observe_corners(
+        synthetic.make_wall_scene(num_markers=8, seed=0),
+        synthetic.make_orbit_trajectory(num_frames=2),
+        cam_mod.CameraModel.from_matrix(np.asarray(entry.K, np.float32),
+                                        np.asarray(entry.DIST, np.float32)),
+        entry.CAPACITY, seed=1)
+    return corners.astype(np.float32), mask
+
+
+def phase_entry(dev):
+    """`entry()`'s frame step on the card, two steps (frame 0, the
+    example, then frame 1): B3 once a step; pose and landmarks against
+    the same steps on the CPU within FLEET_TOL."""
+    import numpy as np
+    import torch
+    from aruco_slam_tpu_torch import entry
+    corners, mask = _entry_frames()
+    got = []
+    for d in (dev, torch.device("cpu")):
+        step, (state, c0, m0) = entry.entry(d)
+        if not (np.array_equal(c0.cpu().numpy(), corners[0])
+                and np.array_equal(m0.cpu().numpy(), mask[0])):
+            raise AssertionError("entry: example inputs are not frame 0")
+        _reset_counts()
+        for i in range(2):
+            state, pose = step(state, torch.tensor(corners[i], device=d),
+                               torch.tensor(mask[i], device=d))
+        got.append((_counts(), pose.cpu().numpy(), state.lm.cpu().numpy()))
+    (launches, pose, lm), (_, pose_cpu, lm_cpu) = got
+    dp, dl = _max_diff(pose, pose_cpu), _max_diff(lm, lm_cpu)
+    log(f"[entry] two frame steps: launches {launches}; pose "
+        f"{np.round(pose, 5).tolist()}; max |card - cpu| pose "
+        f"{dp:.3e}, landmarks {dl:.3e} (tol {FLEET_TOL})")
+    if _b123(launches) != [0, 0, 2] or not (dp <= FLEET_TOL
+                                             and dl <= FLEET_TOL):
+        raise AssertionError(f"entry: B1/B2/B3 {_b123(launches)} (0/0/2 "
+                             f"expected), pose {dp}, landmarks {dl}")
+    return launches
+
+
+def phase_dryrun(smi: str):
+    """`entry.dryrun_multichip(4)` and `(8)` on the card: each raises on a
+    failed check (JAX's thresholds) and prints JAX's summary line. B3 once
+    a frame a shard: 4 frames over n shards and the 4-frame per-sequence
+    scan, 2 image frames over n shards; B1 and B2 in the image step."""
+    from aruco_slam_tpu_torch import entry
+    _reset_counts()
+    for n in (4, 8):
+        t0 = time.perf_counter()
+        entry.dryrun_multichip(n, platform=PLATFORM)
+        log(f"[dryrun] dryrun_multichip({n}) in "
+            f"{time.perf_counter() - t0:.3f} s on {smi}")
+    launches = _counts()
+    want = sum(6 * n + 4 for n in (4, 8))
+    log(f"[dryrun] launches {launches} (B3 {want} expected)")
+    _require(launches, "dry run", ("flood_scan_labels", "refine_corners",
+                                   "fused_update"))
+    if launches["fused_update"] != want:
+        raise AssertionError(f"dryrun: {launches['fused_update']} B3 "
+                             f"launches, {want} expected")
+    return launches
+
+
+SCALING_SIZES = (1, 2, 4, 8)   # bench/scaling.py's defaults, its sweep
+
+
+def scaling_child(out_dir: str, argv) -> int:
+    """A bench/scaling.py worker process (--worker or --ingest-worker):
+    scaling.main(argv) with the launch counts reset first, then this
+    rank's counts into out_dir."""
+    import os
+    sys.path.insert(0, str(ROOT))
+    from aruco_slam_tpu_torch.bench import scaling
+    _reset_counts()
+    scaling.main(argv)
+    mode = "ingest" if "--ingest-worker" in argv else "worker"
+    name = (f"{mode}{os.environ['SLAM_NUM_PROCESSES']}_rank"
+            f"{os.environ['SLAM_PROCESS_ID']}.json")
+    (Path(out_dir) / name).write_text(json.dumps(_counts()))
+    return 0
+
+
+def phase_scaling(tmp: Path, smi: str) -> dict:
+    """bench/scaling.py's four modes at its defaults: the sweep (256
+    frames, 32 markers, 10 iterations, 3 reps over 1, 2, 4 and 8 mesh
+    slots), --fleet 2x2, --processes 2 (two ranks on the card over Gloo)
+    and --ingest 2 (64 frames; one process, then two, each pinned to a
+    core). Each row is finite and carries JAX's fields; the workers run
+    as `chip_smoke.py --scaling-child DIR` for their launch counts: the
+    solves none, an ingest call 3 B1 and 1 B2 a 32-frame chunk a process
+    (a warm call and 3 reps)."""
+    import math
+    from aruco_slam_tpu_torch.bench import scaling
+    base = ["--platform", PLATFORM]
+    rows = scaling.main(base)
+    sizes = tuple(r["devices"] for r in rows)
+    bad = [r for r in rows if not (math.isfinite(r["seconds"])
+                                   and (r["collective_s"] > 0)
+                                   == (r["devices"] > 1))]
+    if sizes != SCALING_SIZES or bad:
+        raise AssertionError(f"scaling sweep: sizes {sizes}, rows {bad}")
+    fleet = scaling.main(base + ["--fleet", "2x2"])
+    children = tmp / "scaling"
+    children.mkdir()
+    real = scaling._worker_command
+    scaling._worker_command = lambda: [
+        sys.executable, str(ROOT / "chip_smoke.py"), "--scaling-child",
+        str(children)]
+    try:
+        procs = scaling.main(base + ["--processes", "2"])
+        ingest = scaling.main(base + ["--ingest", "2"])
+    finally:
+        scaling._worker_command = real
+    counts = {f.stem: json.loads(f.read_text())
+              for f in sorted(children.glob("*.json"))}
+    log(f"[scaling] rows above; worker launches {counts} on {smi}")
+    calls = 4  # _ingest_once: a warm call and 3 reps
+    # one process: 32-frame chunks; two (at most 64 frames): one each
+    chunks = -(-ingest["frames"] // 32)
+    want = {"ingest1_rank0": [3 * chunks * calls, chunks * calls, 0],
+            "ingest2_rank0": [3 * calls, calls, 0],
+            "ingest2_rank1": [3 * calls, calls, 0],
+            "worker2_rank0": [0, 0, 0], "worker2_rank1": [0, 0, 0]}
+    got = {k: _b123(v) for k, v in counts.items()}
+    if got != want or procs["processes"] != 2 \
+            or not math.isfinite(fleet["seconds"]) \
+            or not ingest["ingest_2proc_s"] > 0:
+        raise AssertionError(f"scaling: worker B1/B2/B3 {got}, expected "
+                             f"{want}; rows {procs}, {fleet}, {ingest}")
+    per_chunk = {k: v // calls for k, v in counts["ingest2_rank0"].items()}
+    return {"per_chunk": per_chunk,
+            "bench": {f"scaling {k}": v for k, v in counts.items()}}
 
 
 def phase_fleet_streaming(tmp: Path, paths, seqs, full_warm: dict,
@@ -3219,11 +3433,14 @@ def main() -> int:
                               (frames2, traj.cam_t),
                               (frames2[::-1], traj.cam_t[::-1]))]
         fleet_paths = _fleet_inputs(Path(tmp), seqs)
-        paths["fleet"], full_warm = phase_fleet(
+        paths["fleet"], full_warm, fleet_runs = phase_fleet(
             Path(tmp), fleet_paths, CHUNK, main_fps, smi)
         paths.update(phase_fleet_streaming(Path(tmp), fleet_paths, seqs,
                                            full_warm, smi))
         _elapsed("the fleets")
+        paths["fleet-sharded"] = phase_fleet_sharded(
+            Path(tmp), fleet_paths, CHUNK, fleet_runs, full_warm, smi)
+        _elapsed("the sharded fleet")
         paths["factorgraph"] = phase_factorgraph(argv, traj.cam_t, main_fps,
                                                  smi)
         phase_factorgraph_online(dev, smi)
@@ -3242,6 +3459,13 @@ def main() -> int:
         paths.update({k: v for k, v in ranks.items()
                       if k.startswith("dist rank")})
         _elapsed("distribution")
+        paths["entry"] = phase_entry(dev)
+        _elapsed("the entry step")
+        paths["dryrun"] = phase_dryrun(smi)
+        _elapsed("the dry runs")
+        scaling = phase_scaling(Path(tmp), smi)
+        paths["ingest"] = scaling["per_chunk"]
+        _elapsed("bench/scaling.py")
         paths["calibrate"] = phase_calibrate(Path(tmp), board, cviews, dev,
                                              smi)
         paths["checkpoint-resume"] = phase_checkpoint(npz, Path(tmp),
@@ -3263,6 +3487,7 @@ def main() -> int:
         lm_paths, lm_rows = phase_large_map(smi)
         bench.update(lm_paths)
         bench["headline"] = phase_headline(smi, e2e_rows, lm_rows)
+        bench.update(scaling["bench"])
         _elapsed("the bench drivers")
     # launches: the main path's, or for B4 and B5 (which the main path
     # does not run) their own path's: B5's is the calibration CLI
@@ -3284,4 +3509,7 @@ if __name__ == "__main__":
         sys.exit(rank_child(sys.argv[2], sys.argv[3:]))
     if sys.argv[1:2] == ["--rank-solve"]:
         sys.exit(rank_solve(sys.argv[2], sys.argv[3]))
+    # the worker processes of the [scaling] phase
+    if sys.argv[1:2] == ["--scaling-child"]:
+        sys.exit(scaling_child(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

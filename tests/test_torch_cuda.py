@@ -450,6 +450,73 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(device):
                                torch.zeros(3, device=device))
 
 
+def test_wrappers_refuse_mixed_device_arguments(device):
+    """A launch whose tensors lie on more than one device raises
+    ValueError before anything launches (`_build.on_device`): a CPU
+    argument beside a card's, and with two cards one on each."""
+    other = [torch.device("cpu")]
+    if torch.cuda.device_count() > 1:
+        other.append(torch.device("cuda", 1))
+    img = torch.zeros((1, 64, 64), dtype=torch.uint8, device=device)
+    patches = torch.zeros((2, 15, 15), device=device)
+    cov = torch.eye(6, device=device)
+    for dev in other:
+        before = (cuda_subpix.refine_corners.launches,
+                  cuda_subpix.refine_offsets.launches,
+                  cuda_mekf.fused_update.launches)
+        with pytest.raises(ValueError):
+            cuda_subpix.refine_corners(img, torch.zeros((1, 4, 2),
+                                                        device=dev),
+                                       ((3, 2),))
+        with pytest.raises(ValueError):
+            cuda_subpix.refine_offsets(patches, torch.zeros((2, 2),
+                                                            device=dev),
+                                       ((3, 2),))
+        if dev.type == "cuda":
+            with pytest.raises(ValueError):
+                cuda_mekf.fused_update(cov, torch.zeros((3, 6), device=dev),
+                                       torch.ones(3, device=device),
+                                       torch.zeros(3, device=device))
+        torch.cuda.synchronize()
+        assert before == (cuda_subpix.refine_corners.launches,
+                          cuda_subpix.refine_offsets.launches,
+                          cuda_mekf.fused_update.launches)
+
+
+def test_sharded_fleet_scan_on_card(device):
+    """The stream axis over a mesh that lists the card twice (and over
+    every card, where there are several): B3 once a frame per shard,
+    the trajectories within 2e-5 of the unsharded scan, the outputs on
+    the first entry."""
+    from aruco_slam_tpu_torch.filters import mekf
+    from aruco_slam_tpu_torch.parallel import multi_slam
+    rng = np.random.default_rng(0)
+    s, t = 4, 12
+    t_cl = rng.normal(size=(s, t, 8, 3)) + np.array([0, 0, 3.0])
+    q_cl = np.zeros((s, t, 8, 4))
+    q_cl[..., 1] = 1.0
+    obs = mekf.FrameObservations(
+        torch.tensor(t_cl, dtype=torch.float32, device=device),
+        torch.tensor(q_cl, dtype=torch.float32, device=device),
+        torch.tensor(rng.random((s, t, 8)) < 0.6, device=device))
+    cfg = mekf.MekfConfig(capacity=8)
+    states = multi_slam.stack_states([mekf.init_state(cfg, device=device)
+                                      for _ in range(s)])
+    _, want = multi_slam.batched_mekf_scan(cfg, states, obs)
+    meshes = [[device] * 2]
+    if torch.cuda.device_count() > 1:
+        meshes.append(multi_slam.stream_mesh(device)[:2])
+    for mesh in meshes:
+        before = cuda_mekf.fused_update.launches
+        fin, got = multi_slam.batched_mekf_scan(cfg, states, obs, mesh=mesh)
+        torch.cuda.synchronize()
+        assert cuda_mekf.fused_update.launches - before == t * len(mesh)
+        first = torch.empty(0, device=mesh[0]).device
+        assert got.device == first and fin.cov.device == first
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   atol=2e-5)
+
+
 def _run_slam_both(tmp_path, orbit_frames, frames, flags=()):
     """run_slam on the card and on the CPU (plain versions) over the
     first ``frames`` frames of an ``orbit_frames`` orbit at 960x540."""

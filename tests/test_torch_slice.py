@@ -374,6 +374,8 @@ def test_port_imports_no_jax():
         "import aruco_slam_tpu_torch.bench.detect_profile\n"
         "import aruco_slam_tpu_torch.bench.large_map\n"
         "import aruco_slam_tpu_torch.bench.headline\n"
+        "import aruco_slam_tpu_torch.bench.scaling\n"
+        "import aruco_slam_tpu_torch.entry\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'aruco_slam_tpu', 'cv2', 'imageio', "
         "'matplotlib', 'PIL', 'av'))\n"
