@@ -5,8 +5,9 @@ Counterpart of aruco_slam_tpu/apps/run_slam.py:
     python -m aruco_slam_tpu_torch.apps.run_slam --input seq.npz \
         [--platform cuda|cpu] [--filter mekf|mekf_rotations|factorgraph]
 
-frames -> `ops.detect.detect_markers_batch_lru` (robust sweep, chunks
-of 32) -> `ops.pnp.solve_square_pnp` -> the backend -> TUM trajectory +
+frames -> `ops.detect.detect_candidates_batch` (robust sweep, chunks of
+32) -> `ops.detect.assign_sequence_lru` (the id->slot scan) ->
+`ops.pnp.solve_square_pnp` -> the backend -> TUM trajectory +
 map files in the JAX run_slam's formats. The MEKF backends run
 `filters.mekf.mekf_scan`; ``--filter factorgraph`` runs the windowed
 factor graph frame by frame (`graph.add_frame`, `optimize_window` and,
@@ -31,8 +32,11 @@ cohorts; the S filters in one batched step; per-stream output files).
 trajectory so far) every N frames (the MEKF scan runs in N-frame
 chunks), ``--resume PATH`` restarts from such a file (JAX's format:
 `utils/checkpoint.py`) after re-ingesting the input's observations;
-``--profile DIR`` writes a torch.profiler trace of the front end and the
-backend to DIR/trace.json. The fleet writes neither (as in JAX).
+``--profile DIR`` writes a torch.profiler trace of the run, from the
+input's load to the output files, to DIR/trace.json, where the run's
+spans (`utils.profiling.StageTimer`: ``input.load``, ``front_end.*``,
+``filter.*``, ``output.write``) appear as user annotations. The fleet
+writes no checkpoint (as in JAX).
 
 ``--viz-2d`` (the overlay on the real frames), ``--viz-3d`` (the map,
 ``--viz-3d-renderer mpl|fast``) and ``--display`` (live windows; without
@@ -61,6 +65,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import time
+import uuid
 from pathlib import Path
 from typing import NamedTuple
 
@@ -123,7 +128,9 @@ def _detector_config(cfg: SlamAppConfig) -> detect.DetectorConfig:
 
 
 def _observations_from_frames(frame_iter, cam, cfg: SlamAppConfig,
-                              device: torch.device, chunk: int = 32):
+                              device: torch.device,
+                              timer: StageTimer | None = None,
+                              chunk: int = 32):
     """Image front end over a (timestamp, gray) iterator: detection +
     batched PnP in fixed-size chunks, slots claimed first-seen through
     the id->slot table (recycled stalest-first with ``--slot-max-age``).
@@ -133,7 +140,10 @@ def _observations_from_frames(frame_iter, cam, cfg: SlamAppConfig,
     frames, validated tracking in between), whose carry (corners, mask,
     velocity, table, frame index) crosses the chunks; its tail chunk is
     not padded, since a zero frame would change neither the table nor
-    any real frame's output. Returns the loader tuple (times, t_cl, q_cl,
+    any real frame's output. ``timer`` takes the spans
+    ``front_end.upload``, ``.sweep``, ``.slots`` and ``.pnp`` of each
+    chunk (the tracked chunk's frame loop is its ``.slots``) and the
+    final ``.readback``. Returns the loader tuple (times, t_cl, q_cl,
     mask, cam, ambiguity, slot_ids, reset, ids_seq) as numpy arrays;
     ``reset`` and ``ids_seq`` (T, C) only with ``--slot-max-age``."""
     ke = cfg.track_every
@@ -141,6 +151,7 @@ def _observations_from_frames(frame_iter, cam, cfg: SlamAppConfig,
         raise ValueError("--slot-max-age with --track-every is not "
                          "supported yet: the streaming carry does not "
                          "thread the LRU table")
+    timer = timer or StageTimer()
     dcfg = _detector_config(cfg)
     times, buf, outs = [], [], []
     table = detect.slot_table_init(dcfg.capacity, device)
@@ -154,25 +165,31 @@ def _observations_from_frames(frame_iter, cam, cfg: SlamAppConfig,
         n = len(buf)
         if not n:
             return
+        with timer.stage("front_end.upload"):
+            if n < chunk and not ke:
+                buf.extend([np.zeros_like(buf[0])] * (chunk - n))
+            ims = torch.from_numpy(np.stack(buf)).to(device)
         if ke:
-            per_frame = []
-            for im in torch.from_numpy(np.stack(buf)).to(device):
-                carry, out = step(carry, im)
-                per_frame.append(out)
-            det_c, det_m = (torch.stack(x) for x in zip(*per_frame))
+            with timer.stage("front_end.slots"):
+                per_frame = []
+                for im in ims:
+                    carry, out = step(carry, im)
+                    per_frame.append(out)
+                det_c, det_m = (torch.stack(x) for x in zip(*per_frame))
             table = carry[3]
             reset = ids_f = None
             dropped = torch.zeros(n, dtype=torch.int32, device=device)
         else:
-            if n < chunk:
-                buf.extend([np.zeros_like(buf[0])] * (chunk - n))
-            ims = torch.from_numpy(np.stack(buf)).to(device)
-            det_c, det_m, reset, ids_f, table, seen, dropped = \
-                detect.detect_markers_batch_lru(ims, dcfg, table, seen,
-                                                fidx)
+            with timer.stage("front_end.sweep"):
+                cands = detect.detect_candidates_batch(ims, dcfg)
+            with timer.stage("front_end.slots"):
+                det_c, det_m, reset, ids_f, table, seen, dropped = \
+                    detect.assign_sequence_lru(dcfg, table, seen, fidx,
+                                               *cands)
         fidx += n
-        outs.append(_pnp_chunk(cam, cfg, det_c, det_m, reset, ids_f,
-                               dropped, n))
+        with timer.stage("front_end.pnp"):
+            outs.append(_pnp_chunk(cam, cfg, det_c, det_m, reset, ids_f,
+                                   dropped, n))
         buf.clear()
 
     for ts, gray in frame_iter:
@@ -183,7 +200,8 @@ def _observations_from_frames(frame_iter, cam, cfg: SlamAppConfig,
     flush()
     if not times:
         raise ValueError("no decodable frames")
-    return _loader_tuple(times, outs, cam, table, cfg, dcfg)
+    with timer.stage("front_end.readback"):
+        return _loader_tuple(times, outs, cam, table, cfg, dcfg)
 
 
 def _observations_from_frames_sharded(frame_iter, cam, cfg: SlamAppConfig,
@@ -319,7 +337,8 @@ def load_camera(cfg: SlamAppConfig, calib_dir=None, device=None
 
 
 def load_video_observations(cfg: SlamAppConfig, calib_dir,
-                            device: torch.device, shard=None):
+                            device: torch.device, shard=None,
+                            timer: StageTimer | None = None):
     """A video's loader tuple (see `load_observations`): the camera from
     `load_camera`, frames decoded ahead on a thread into the front end.
     ``shard=(pid, nproc)`` shards the candidate pipeline over processes
@@ -329,16 +348,20 @@ def load_video_observations(cfg: SlamAppConfig, calib_dir,
     if shard and shard[1] > 1:
         return _observations_from_frames_sharded(frames, cam, cfg, device,
                                                  *shard)
-    return _observations_from_frames(frames, cam, cfg, device)
+    return _observations_from_frames(frames, cam, cfg, device, timer)
 
 
 def load_observations(src: NpzSource, cfg: SlamAppConfig,
-                      device: torch.device, shard=None):
+                      device: torch.device, shard=None,
+                      timer: StageTimer | None = None):
     """Return (times, t_cl (T,C,3), q_cl (T,C,4), mask (T,C), cam,
     ambiguity, slot_ids, reset, ids_seq); ``slot_ids`` maps slot ->
     marker id for image input (None when the slot index is the id).
     ``shard=(pid, nproc)`` shards image input's candidate pipeline over
-    processes (`_observations_from_frames_sharded`)."""
+    processes (`_observations_from_frames_sharded`). ``timer`` takes the
+    front end's spans (corner input: ``front_end.upload``, ``.pnp``,
+    ``.readback``)."""
+    timer = timer or StageTimer()
     k = src["camera_matrix"] if src.has("camera_matrix") \
         else cfg.camera_matrix
     d = src["dist_coeffs"] if src.has("dist_coeffs") else cfg.dist_coeffs
@@ -352,17 +375,20 @@ def load_observations(src: NpzSource, cfg: SlamAppConfig,
                 zip(src.times, imgs), cam, cfg, device, *shard,
                 total=len(imgs))
         return _observations_from_frames(zip(src.times, imgs), cam, cfg,
-                                         device)
+                                         device, timer)
     if src.has("corners"):
-        res = pnp.solve_square_pnp(
-            cam, torch.as_tensor(src["corners"], dtype=torch.float32,
-                                 device=device), cfg.marker_size)
-        mask = torch.as_tensor(src["corner_mask"], device=device) \
-            & (res.err < cfg.max_reproj_px)
-        amb = res.err / torch.clamp(res.err2, min=1e-9)
-        return (src.times, res.t_cl.cpu().numpy(), res.q_cl.cpu().numpy(),
-                mask.cpu().numpy(), cam, amb.cpu().numpy(), None, None,
-                None)
+        with timer.stage("front_end.upload"):
+            corners = torch.as_tensor(src["corners"], dtype=torch.float32,
+                                      device=device)
+            corner_mask = torch.as_tensor(src["corner_mask"], device=device)
+        with timer.stage("front_end.pnp"):
+            res = pnp.solve_square_pnp(cam, corners, cfg.marker_size)
+            mask = corner_mask & (res.err < cfg.max_reproj_px)
+            amb = res.err / torch.clamp(res.err2, min=1e-9)
+        with timer.stage("front_end.readback"):
+            return (src.times, res.t_cl.cpu().numpy(),
+                    res.q_cl.cpu().numpy(), mask.cpu().numpy(), cam,
+                    amb.cpu().numpy(), None, None, None)
     if src.has("t_cl"):
         return (src.times, src["t_cl"], src["q_cl"], src["mask"], cam,
                 None, None, None, None)
@@ -484,17 +510,21 @@ def run_mekf(cfg: SlamAppConfig, times, t_cl, q_cl, mask, cam,
     the frame's snapshot back in one copy, feeds the sinks, and
     checkpoints every ``ckpt_every`` frames; the live window's 'q' ends
     the run, and cam_traj then holds the frames done. ``timer`` takes
-    the loop's ``step`` and ``read`` seconds."""
+    the spans ``filter.upload``, ``filter.scan`` (each chunk's scan) and
+    ``filter.readback``, or with viewers the loop's ``step`` and
+    ``read``."""
+    timer = timer or StageTimer()
     max_obs = _auto_max_obs(cfg, mask, t_cl.shape[1])
     fcfg = _mekf_config(cfg, t_cl.shape[1], max_obs, with_rotations, cam)
     state = init_state(fcfg, device=device)
     if load_map_file:
         state = _preload(fcfg, state, load_map_file, slot_ids)
     f32 = torch.float32
-    seq = FrameObservations(
-        _dev(t_cl, device, f32), _dev(q_cl, device, f32),
-        _dev(mask, device), _dev(ambiguity, device, f32),
-        _dev(reset, device))
+    with timer.stage("filter.upload"):
+        seq = FrameObservations(
+            _dev(t_cl, device, f32), _dev(q_cl, device, f32),
+            _dev(mask, device), _dev(ambiguity, device, f32),
+            _dev(reset, device))
     tt = len(times)
     cam_traj = np.zeros((tt, 7), np.float32)
     start = 0
@@ -504,7 +534,6 @@ def run_mekf(cfg: SlamAppConfig, times, t_cl, q_cl, mask, cam,
         for v in viewers:  # align frame providers with the skip
             getattr(v, "skip_to", lambda i: None)(start)
     if viewers:
-        timer = timer or StageTimer()
         for i in range(start, tt):
             with timer.stage("step"):
                 state = mekf_step(fcfg, state, FrameObservations(
@@ -527,16 +556,21 @@ def run_mekf(cfg: SlamAppConfig, times, t_cl, q_cl, mask, cam,
         step = max(ckpt_every or tt - start, 1)
         for s in range(start, tt, step):
             e = min(s + step, tt)
-            state, traj = mekf_scan(fcfg, state, FrameObservations(
-                *(None if a is None else a[s:e] for a in seq)))
-            cam_traj[s:e] = traj.cpu().numpy()
+            with timer.stage("filter.scan"):
+                state, traj = mekf_scan(fcfg, state, FrameObservations(
+                    *(None if a is None else a[s:e] for a in seq)))
+            with timer.stage("filter.readback"):
+                cam_traj[s:e] = traj.cpu().numpy()
             if ckpt_every and ckpt_path is not None and e < tt:
                 save_checkpoint(ckpt_path,
                                 (state, np.int64(e), cam_traj[:e]))
-    _warn_dropped(state.dropped_obs.cpu().numpy(), fcfg.max_obs)
-    unc = mekf_mod.landmark_uncertainties(fcfg, state).cpu().numpy()
-    return (cam_traj, state.active.cpu().numpy(),
-            state.lm.cpu().numpy()[:, :3], unc[:, :3])
+    with timer.stage("filter.readback"):
+        dropped = state.dropped_obs.cpu().numpy()
+        unc = mekf_mod.landmark_uncertainties(fcfg, state).cpu().numpy()
+        active = state.active.cpu().numpy()
+        lm = state.lm.cpu().numpy()[:, :3]
+    _warn_dropped(dropped, fcfg.max_obs)
+    return cam_traj, active, lm, unc[:, :3]
 
 
 def epoch_remap(t_cl, q_cl, mask, reset, ids_seq):
@@ -711,8 +745,8 @@ def _load_stream_frames(path: str, cfg: SlamAppConfig):
 
 
 def run_multi_stream(cfg: SlamAppConfig, inputs: list[str], calib_dir,
-                     device: torch.device, chunk: int = 32
-                     ) -> list[RunResult]:
+                     device: torch.device, chunk: int = 32,
+                     timer: StageTimer | None = None) -> list[RunResult]:
     """Online multi-camera serving, as the JAX run_multi_stream: S
     streams (truncated to the shortest) through the image->pose pipeline
     together. With full detection each chunk's S·T frames run the
@@ -731,25 +765,28 @@ def run_multi_stream(cfg: SlamAppConfig, inputs: list[str], calib_dir,
     (trajectory_s0.txt, map_s0.txt, ...); with a shared ``--max-obs``
     each stream matches its single-stream run (with tracking: a stream
     of cohort 0, or any stream without cohorts, whose single-stream run
-    never swept off the schedule)."""
+    never swept off the schedule). ``timer`` takes the single-stream
+    path's spans under the same names."""
+    timer = timer or StageTimer()
     seconds = {}
     t0 = time.perf_counter()
-    loaded = [_load_stream_frames(p, cfg) for p in inputs]
-    s = len(loaded)
-    tlen = min(len(t) for t, _, _, _ in loaded)
-    if any(len(t) != tlen for t, _, _, _ in loaded):
-        print(f"streams have unequal lengths; truncating all to "
-              f"{tlen} frames")
-    times = loaded[0][0][:tlen]
-    calib = next((c for _, _, c, _ in loaded if c is not None), None)
-    cam = load_camera(cfg, calib_dir, device) if calib is None \
-        else _camera(*calib, device)
-    for _, _, _, src in loaded:  # npz marker size, as one stream's path
-        if src is not None and src.has("marker_size"):
-            cfg.marker_size = float(src["marker_size"])
-            break
-    frames = np.stack([f[:tlen] for _, f, _, _ in loaded])  # (S,T,H,W)
-    dcfg = _detector_config(cfg)
+    with timer.stage("input.load"):
+        loaded = [_load_stream_frames(p, cfg) for p in inputs]
+        s = len(loaded)
+        tlen = min(len(t) for t, _, _, _ in loaded)
+        if any(len(t) != tlen for t, _, _, _ in loaded):
+            print(f"streams have unequal lengths; truncating all to "
+                  f"{tlen} frames")
+        times = loaded[0][0][:tlen]
+        calib = next((c for _, _, c, _ in loaded if c is not None), None)
+        cam = load_camera(cfg, calib_dir, device) if calib is None \
+            else _camera(*calib, device)
+        for _, _, _, src in loaded:  # npz marker size, as one stream's path
+            if src is not None and src.has("marker_size"):
+                cfg.marker_size = float(src["marker_size"])
+                break
+        frames = np.stack([f[:tlen] for _, f, _, _ in loaded])  # (S,T,H,W)
+        dcfg = _detector_config(cfg)
     seconds["load"] = time.perf_counter() - t0
 
     mesh = multi_slam.stream_mesh(device)
@@ -775,49 +812,58 @@ def run_multi_stream(cfg: SlamAppConfig, inputs: list[str], calib_dir,
     for c0 in range(0, tlen, chunk):
         ims = frames[:, c0:c0 + chunk]
         n = ims.shape[1]
-        if ke:
-            # one upload a chunk, made time-major on the device: frame j
-            # of every stream is the contiguous (S, H, W) block ims[j]
-            ims = torch.from_numpy(np.ascontiguousarray(ims)).to(device)
-            per_frame = []
-            for im in ims.transpose(0, 1).contiguous():
-                carry, out = step(carry, im)
-                per_frame.append(out)
-            det_c, det_m = (torch.stack(x, 1) for x in zip(*per_frame))
-        else:
-            if n < chunk:  # zero-pad the tail, as the single-stream path
+        with timer.stage("front_end.upload"):
+            if n < chunk and not ke:  # zero-pad the tail, as one stream
                 ims = np.concatenate(
                     [ims, np.zeros((s, chunk - n) + ims.shape[2:],
                                    ims.dtype)], axis=1)
-            det_c, det_m, _, _, tables, seen, _ = \
-                detect.detect_markers_batch_lru(
-                    torch.from_numpy(ims).to(device), dcfg, tables, seen, c0)
-        res = pnp.solve_square_pnp(cam, det_c, cfg.marker_size)
-        mask = det_m & (res.err < cfg.max_reproj_px)
-        amb = res.err / torch.clamp(res.err2, min=1e-9)
-        outs.append([x[:, :n] for x in (res.t_cl, res.q_cl, mask, amb)])
+            ims = torch.from_numpy(np.ascontiguousarray(ims)).to(device)
+        if ke:
+            # one upload a chunk, made time-major on the device: frame j
+            # of every stream is the contiguous (S, H, W) block ims[j]
+            with timer.stage("front_end.slots"):
+                per_frame = []
+                for im in ims.transpose(0, 1).contiguous():
+                    carry, out = step(carry, im)
+                    per_frame.append(out)
+                det_c, det_m = (torch.stack(x, 1) for x in zip(*per_frame))
+        else:
+            with timer.stage("front_end.sweep"):
+                cands = detect.detect_candidates_batch(ims, dcfg)
+            with timer.stage("front_end.slots"):
+                det_c, det_m, _, _, tables, seen, _ = \
+                    detect.assign_sequence_lru(dcfg, tables, seen, c0,
+                                               *cands)
+        with timer.stage("front_end.pnp"):
+            res = pnp.solve_square_pnp(cam, det_c, cfg.marker_size)
+            mask = det_m & (res.err < cfg.max_reproj_px)
+            amb = res.err / torch.clamp(res.err2, min=1e-9)
+            outs.append([x[:, :n] for x in (res.t_cl, res.q_cl, mask, amb)])
     t_cl, q_cl, mask, amb = (torch.cat([o[i] for o in outs], 1)
                              for i in range(4))
     if ke:
         tables = carry[3]
+    with timer.stage("front_end.readback"):
+        mask_np = mask.cpu().numpy()
     _sync(device)
     seconds["front_end"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    mask_np = mask.cpu().numpy()
     max_obs = _auto_max_obs(cfg, mask_np, dcfg.capacity)
     fcfg = _mekf_config(cfg, dcfg.capacity, max_obs,
                         cfg.filter == "mekf_rotations", cam)
     states = multi_slam.stack_states([init_state(fcfg, device=device)] * s)
     if mesh is not None:
         print(f"sharding {s} streams over {ndev} devices")
-    states, trajs = multi_slam.batched_mekf_scan(
-        fcfg, states, FrameObservations(t_cl, q_cl, mask, amb), mesh=mesh)
-    states = MekfState(*(x.to(device) for x in states))
-    trajs = trajs.cpu().numpy()
+    with timer.stage("filter.scan"):
+        states, trajs = multi_slam.batched_mekf_scan(
+            fcfg, states, FrameObservations(t_cl, q_cl, mask, amb),
+            mesh=mesh)
+    with timer.stage("filter.readback"):
+        states = MekfState(*(x.to(device) for x in states))
+        trajs = trajs.cpu().numpy()
     _sync(device)
     seconds["filter"] = time.perf_counter() - t0
-    _warn_dropped(states.dropped_obs.cpu().numpy(), fcfg.max_obs)
     peak = ""
     if cards:
         seconds["peak_bytes"] = sum(torch.cuda.max_memory_allocated(card)
@@ -827,32 +873,36 @@ def run_multi_stream(cfg: SlamAppConfig, inputs: list[str], calib_dir,
           f"{seconds['front_end']:.3f}s (input load {seconds['load']:.3f}s),"
           f" filter {seconds['filter']:.3f}s ({device}){peak}")
 
-    unc = mekf_mod.landmark_uncertainties(fcfg, states).cpu().numpy()
-    active = states.active.cpu().numpy()
-    lm = states.lm.cpu().numpy()[..., :3]
-    table_np = tables.cpu().numpy()
-    results = []
-    for i in range(s):
-        tf = _stream_path(cfg.trajectory_file, i)
-        with TrajectoryWriter(tf) as w:
-            for ts, pose in zip(times, trajs[i]):
-                w.write(float(ts), pose)
-        slots = np.where(active[i])[0]
-        ids = table_np[i][slots]
-        mf = _stream_path(cfg.map_file, i)
-        save_map(mf, ids, lm[i][slots], unc[i][:, :3][slots])
-        line = f"stream {i}: {tf} ({tlen} poses), {mf} " \
-               f"({len(ids)} landmarks)"
-        err = None
-        src = loaded[i][3]
-        if src is not None and src.has("gt_cam_t"):
-            err = float(ate.ate_rmse(trajs[i][:, :3],
-                                     src["gt_cam_t"][:tlen]))
-            line += f", ATE {err:.4f} m"
-        print(line)
-        results.append(RunResult(tf, mf, trajs[i], mask_np[i], ids, err,
-                                 seconds))
-    return results
+    with timer.stage("filter.readback"):
+        dropped = states.dropped_obs.cpu().numpy()
+        unc = mekf_mod.landmark_uncertainties(fcfg, states).cpu().numpy()
+        active = states.active.cpu().numpy()
+        lm = states.lm.cpu().numpy()[..., :3]
+        table_np = tables.cpu().numpy()
+    _warn_dropped(dropped, fcfg.max_obs)
+    with timer.stage("output.write"):
+        results = []
+        for i in range(s):
+            tf = _stream_path(cfg.trajectory_file, i)
+            with TrajectoryWriter(tf) as w:
+                for ts, pose in zip(times, trajs[i]):
+                    w.write(float(ts), pose)
+            slots = np.where(active[i])[0]
+            ids = table_np[i][slots]
+            mf = _stream_path(cfg.map_file, i)
+            save_map(mf, ids, lm[i][slots], unc[i][:, :3][slots])
+            line = f"stream {i}: {tf} ({tlen} poses), {mf} " \
+                   f"({len(ids)} landmarks)"
+            err = None
+            src = loaded[i][3]
+            if src is not None and src.has("gt_cam_t"):
+                err = float(ate.ate_rmse(trajs[i][:, :3],
+                                         src["gt_cam_t"][:tlen]))
+                line += f", ATE {err:.4f} m"
+            print(line)
+            results.append(RunResult(tf, mf, trajs[i], mask_np[i], ids, err,
+                                     seconds))
+        return results
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -952,24 +1002,26 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
-def _run_single(cfg: SlamAppConfig, args, device: torch.device):
+def _run_single(cfg: SlamAppConfig, args, device: torch.device,
+                timer: StageTimer):
     """One input through the front end, the viewers' construction and
-    the backend: (stage seconds, the npz source or None, the viewers,
-    (times, mask, slot_ids, cam_traj, active, landmarks,
-    uncertainties)). The caller closes the viewers."""
+    the backend, with their spans on ``timer``: (stage seconds, the npz
+    source or None, the viewers, (times, mask, slot_ids, cam_traj,
+    active, landmarks, uncertainties)). The caller closes the
+    viewers."""
     seconds = {}
     t0 = time.perf_counter()
     if is_video(cfg.input):
         src = None
-        obs = load_video_observations(cfg, args.calib, device)
+        obs = load_video_observations(cfg, args.calib, device, timer=timer)
     else:
-        src = NpzSource(cfg.input)
+        with timer.stage("input.load"):
+            src = NpzSource(cfg.input)
         seconds["load"] = time.perf_counter() - t0
-        obs = load_observations(src, cfg, device)
+        obs = load_observations(src, cfg, device, timer=timer)
     _sync(device)
     seconds["front_end"] = time.perf_counter() - t0
 
-    timer = StageTimer()
     viewers = sinks.build_viewers(cfg, obs[4], src, display=args.display,
                                   timer=timer)
     t0 = time.perf_counter()
@@ -992,11 +1044,23 @@ def _run_single(cfg: SlamAppConfig, args, device: torch.device):
             reset=reset, **kw)
     _sync(device)
     seconds["filter"] = time.perf_counter() - t0
-    seconds.update(timer.totals)  # the viewer loop's stages, if any
     return seconds, src, viewers, (times, mask, slot_ids, *out)
 
 
 def main(argv=None) -> RunResult | list[RunResult]:
+    """One request: the whole call is the span ``run_slam.request``, and
+    each result's ``seconds`` also holds every span's seconds summed by
+    name (`utils.profiling.StageTimer`; the viewer loop's stages among
+    them)."""
+    timer = StageTimer(request_id=uuid.uuid4().hex)
+    with timer.stage("run_slam.request"):
+        out = _serve(argv, timer)
+    for res in out if isinstance(out, list) else [out]:
+        res.seconds.update(timer.totals)
+    return out
+
+
+def _serve(argv, timer: StageTimer) -> RunResult | list[RunResult]:
     parser = _parser()
     args = parser.parse_args(argv)
     if args.track_every and args.track_every < 3:
@@ -1041,40 +1105,51 @@ def main(argv=None) -> RunResult | list[RunResult]:
         if args.viz_2d or args.viz_3d or args.display:
             print("note: viz/display are per-stream features; the "
                   "fleet path writes trajectories/maps only")
-        return run_multi_stream(cfg, inputs, args.calib, device)
+        with device_trace(args.profile):
+            results = run_multi_stream(cfg, inputs, args.calib, device,
+                                       timer=timer)
+        _wrote_trace(args.profile)
+        return results
     sinks.check_libraries(cfg, args.display)  # before any input is read
 
     with device_trace(args.profile):
         seconds, src, viewers, (times, mask, slot_ids, cam_traj, active,
-                                lm, unc) = _run_single(cfg, args, device)
-    for v in viewers:
-        v.close()
-    if args.profile:
-        print(f"wrote {Path(args.profile) / 'trace.json'}")
-    if len(cam_traj) < len(times):  # the live window's 'q' ended the run
-        print(f"quit requested at frame {len(cam_traj)}/{len(times)}")
-        times, mask = times[:len(cam_traj)], mask[:len(cam_traj)]
-    tt = len(times)
-    stage = "graph" if cfg.filter == "factorgraph" else "filter"
-    print(f"front end: {tt} frames in {seconds['front_end']:.3f}s; "
-          f"{stage}: {seconds['filter']:.3f}s ({device})")
+                                lm, unc) = _run_single(cfg, args, device,
+                                                       timer)
+        for v in viewers:
+            v.close()
+        if len(cam_traj) < len(times):  # the live window's 'q' ended it
+            print(f"quit requested at frame {len(cam_traj)}/{len(times)}")
+            times, mask = times[:len(cam_traj)], mask[:len(cam_traj)]
+        tt = len(times)
+        stage = "graph" if cfg.filter == "factorgraph" else "filter"
+        print(f"front end: {tt} frames in {seconds['front_end']:.3f}s; "
+              f"{stage}: {seconds['filter']:.3f}s ({device})")
 
-    with TrajectoryWriter(cfg.trajectory_file) as w:
-        for ts, pose in zip(times, cam_traj):
-            w.write(float(ts), pose)
-    slots = np.where(active)[0]
-    # under the id->slot table the map file records TRUE marker ids
-    # (slot index == id for corner-/pose-level inputs)
-    ids = slot_ids[slots] if slot_ids is not None else slots
-    save_map(cfg.map_file, ids, lm[slots], unc[slots])
-    print(f"wrote {cfg.trajectory_file} ({tt} poses), "
-          f"{cfg.map_file} ({len(ids)} landmarks)")
-    err = None
-    if src is not None and src.has("gt_cam_t"):
-        err = float(ate.ate_rmse(cam_traj[:, :3], src["gt_cam_t"][:tt]))
-        print(f"ATE vs ground truth: {err:.4f} m")
+        with timer.stage("output.write"):
+            with TrajectoryWriter(cfg.trajectory_file) as w:
+                for ts, pose in zip(times, cam_traj):
+                    w.write(float(ts), pose)
+            slots = np.where(active)[0]
+            # under the id->slot table the map file records TRUE marker
+            # ids (slot index == id for corner-/pose-level inputs)
+            ids = slot_ids[slots] if slot_ids is not None else slots
+            save_map(cfg.map_file, ids, lm[slots], unc[slots])
+            print(f"wrote {cfg.trajectory_file} ({tt} poses), "
+                  f"{cfg.map_file} ({len(ids)} landmarks)")
+            err = None
+            if src is not None and src.has("gt_cam_t"):
+                err = float(ate.ate_rmse(cam_traj[:, :3],
+                                         src["gt_cam_t"][:tt]))
+                print(f"ATE vs ground truth: {err:.4f} m")
+    _wrote_trace(args.profile)
     return RunResult(cfg.trajectory_file, cfg.map_file, cam_traj,
                      np.asarray(mask), np.asarray(ids), err, seconds)
+
+
+def _wrote_trace(profile) -> None:
+    if profile:
+        print(f"wrote {Path(profile) / 'trace.json'}")
 
 
 if __name__ == "__main__":

@@ -630,8 +630,12 @@ def assign_slots_lru(table_ids, last_seen, frame_idx, max_age: int,
 
 
 def detect_candidates_batch(images: torch.Tensor, cfg: DetectorConfig):
-    """The candidate pipeline (steps 1-6) over a (T, H, W) chunk."""
-    return _detect_candidates(images, cfg)
+    """The candidate pipeline (steps 1-6) over a (T, H, W) chunk, or an
+    (S, T, H, W) one as one batch of S·T frames; the candidates keep the
+    leading axes."""
+    lead = images.shape[:-2]
+    cands = _detect_candidates(images.reshape(-1, *images.shape[-2:]), cfg)
+    return tuple(x.reshape(*lead, *x.shape[1:]) for x in cands)
 
 
 def assign_sequence_lru(cfg: DetectorConfig, table_ids, last_seen,
@@ -664,11 +668,8 @@ def detect_markers_batch_lru(images: torch.Tensor, cfg: DetectorConfig,
     (all streams at once). Returns (corners (..., T, C, 4, 2), mask (...,
     T, C), reset (..., T, C), ids_seq (..., T, C), table_ids, last_seen,
     dropped (..., T))."""
-    lead = images.shape[:-2]
-    cands = detect_candidates_batch(images.reshape(-1, *images.shape[-2:]),
-                                    cfg)
-    cands = [x.reshape(*lead, *x.shape[1:]) for x in cands]
-    return assign_sequence_lru(cfg, table_ids, last_seen, frame0, *cands)
+    return assign_sequence_lru(cfg, table_ids, last_seen, frame0,
+                               *detect_candidates_batch(images, cfg))
 
 
 def _median(x: torch.Tensor, dim: int) -> torch.Tensor:

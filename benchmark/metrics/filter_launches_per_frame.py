@@ -1,0 +1,9 @@
+"""Filter: host calls that put work on the device (kernel launches,
+async copies and fills) inside the ``filter.scan`` spans of the traced
+requests, over their frames."""
+
+from benchmark.spans import PROBES, launches_per_frame  # noqa: F401
+
+
+def read(record):
+    return launches_per_frame(record, "filter.scan")

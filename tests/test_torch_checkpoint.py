@@ -279,18 +279,23 @@ def test_device_trace_is_a_no_op_without_a_dir():
 
 
 def test_stage_timer_report():
+    """The timer's record: totals and counts by name, and one span a
+    stage in the order they opened, each with its enclosing span."""
     timer = profiling.StageTimer()
     for _ in range(3):
         with timer.stage("small", torch.ones(2)):
             pass
     with timer.stage("big") as out:
         out["result"] = (torch.ones(4), [torch.zeros(1)])
-        sum(range(200_000))
-    lines = timer.report().splitlines()
-    assert timer.counts == {"small": 3, "big": 1}
-    assert lines[0].startswith("big ") and lines[1].startswith("small ")
-    assert lines[1].endswith("x3") and "ms/call" in lines[1]
-    assert timer.totals["big"] > 0
+        with timer.stage("big.part"):
+            sum(range(200_000))
+    assert timer.counts == {"small": 3, "big": 1, "big.part": 1}
+    assert [(s.name, s.parent) for s in timer.spans] == [
+        ("small", -1)] * 3 + [("big", -1), ("big.part", 3)]
+    for name in timer.totals:
+        assert timer.totals[name] == pytest.approx(sum(
+            s.end - s.start for s in timer.spans if s.name == name))
+    assert timer.totals["big"] >= timer.totals["big.part"] > 0
 
 
 @pytest.mark.parametrize("kw", [
