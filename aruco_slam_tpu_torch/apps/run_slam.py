@@ -72,7 +72,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from aruco_slam_tpu_torch._device import resolve_device
+from aruco_slam_tpu_torch._device import request_stream, resolve_device
 from aruco_slam_tpu_torch.apps import sinks
 from aruco_slam_tpu_torch.bench import ate
 from aruco_slam_tpu_torch.config import SlamAppConfig
@@ -1105,14 +1105,14 @@ def _serve(argv, timer: StageTimer) -> RunResult | list[RunResult]:
         if args.viz_2d or args.viz_3d or args.display:
             print("note: viz/display are per-stream features; the "
                   "fleet path writes trajectories/maps only")
-        with device_trace(args.profile):
+        with device_trace(args.profile), request_stream(device):
             results = run_multi_stream(cfg, inputs, args.calib, device,
                                        timer=timer)
         _wrote_trace(args.profile)
         return results
     sinks.check_libraries(cfg, args.display)  # before any input is read
 
-    with device_trace(args.profile):
+    with device_trace(args.profile), request_stream(device):
         seconds, src, viewers, (times, mask, slot_ids, cam_traj, active,
                                 lm, unc) = _run_single(cfg, args, device,
                                                        timer)

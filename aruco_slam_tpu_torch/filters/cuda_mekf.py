@@ -47,10 +47,12 @@ def fused_update_plain(cov: torch.Tensor, h: torch.Tensor,
 
 
 def fused_update(cov: torch.Tensor, h: torch.Tensor, r_diag: torch.Tensor,
-                 resid: torch.Tensor, ns_iters: int = 20):
+                 resid: torch.Tensor, ns_iters: int = 20, out=None):
     """Fused gain/innovation/Joseph update, f32: cov (N, N), h (M, N),
     r_diag and resid (M,), or each with a leading stream axis (S, ...).
-    Returns (innovation (..., N), new_cov (..., N, N)). A CUDA tensor
+    Returns (innovation (..., N), new_cov (..., N, N)), written into
+    ``out`` where given (two tensors of those shapes, apart from the
+    inputs: a CUDA graph reads them at fixed addresses). A CUDA tensor
     launches ``csrc/mekf_update.cu`` once for all S streams; a CPU tensor
     runs `fused_update_plain`."""
     lead = cov.shape[:-2]
@@ -63,10 +65,15 @@ def fused_update(cov: torch.Tensor, h: torch.Tensor, r_diag: torch.Tensor,
                          f"{tuple(h.shape)}, r {tuple(r_diag.shape)}, "
                          f"resid {tuple(resid.shape)}")
     if cov.device.type == "cpu":
-        return fused_update_plain(cov, h, r_diag, resid, ns_iters)
-    out = _launch(cov, h, r_diag, resid, ns_iters)
+        res = fused_update_plain(cov, h, r_diag, resid, ns_iters)
+        if out is None:
+            return res
+        for o, x in zip(out, res):
+            o.copy_(x)
+        return out
+    res = _launch(cov, h, r_diag, resid, ns_iters, out=out)
     fused_update.launches += 1
-    return out
+    return res
 
 
 fused_update.launches = 0
@@ -108,7 +115,7 @@ def split_ms(cov, h, r_diag, resid, ns_iters: int = 20) -> dict:
 
 
 def _launch(cov, h, r_diag, resid, ns_iters, form=0, marks=None,
-            n_marks=0):
+            n_marks=0, out=None):
     args = [t.contiguous() for t in (cov, h, r_diag, resid)]
     batched = cov.dim() == 3
     for name, t, nd in zip(("cov", "h", "r_diag", "resid"), args,
@@ -122,9 +129,18 @@ def _launch(cov, h, r_diag, resid, ns_iters, form=0, marks=None,
                            [ctypes.c_int, ctypes.c_int], ctypes.c_longlong)
     scratch = torch.empty(streams * size(n, m), dtype=torch.float32,
                           device=cov.device)
-    inn = torch.empty(cov.shape[:-1], dtype=torch.float32,
-                      device=cov.device)
-    new_cov = torch.empty_like(cov)
+    if out is None:
+        inn = torch.empty(cov.shape[:-1], dtype=torch.float32,
+                          device=cov.device)
+        new_cov = torch.empty_like(cov)
+    else:
+        inn, new_cov = out
+        for name, t, nd in (("inn", inn, 1), ("new_cov", new_cov, 2)):
+            _build.check_cuda(name, t, torch.float32, nd + batched)
+        if inn.shape != cov.shape[:-1] or new_cov.shape != cov.shape:
+            raise ValueError(f"fused_update: out {tuple(inn.shape)}, "
+                             f"{tuple(new_cov.shape)} for cov "
+                             f"{tuple(cov.shape)}")
     fn = _build.function("mekf_fused_update_batched", [ctypes.c_void_p] * 7
                          + [ctypes.c_int] * 5 + [ctypes.c_void_p,
                                                  ctypes.c_int,

@@ -446,12 +446,13 @@ def _update_xla_form(cfg: MekfConfig, cov, h_mat, r_diag, resid):
     return innovation, (0.5 * (cov + cov.transpose(-1, -2))).to(cdt)
 
 
-def mekf_step(cfg: MekfConfig, state: MekfState,
-              obs: FrameObservations) -> MekfState:
-    """One frame: activate new landmarks → predict → update. With a
-    leading stream axis on every field, S filters step at once and the
-    update is one kernel launch."""
-    use_kernel = _validate(cfg)
+def _linearize(cfg: MekfConfig, state: MekfState, obs: FrameObservations):
+    """A step up to its update: activate new landmarks, predict, and the
+    update's rows. Returns (pred, h_mat, r_diag, resid, prev_t): ``pred``
+    is the state the update corrects (predicted pose and velocity, the
+    landmarks and slots activated, the dropped count, the predicted and
+    augmented covariance), then the update's inputs and the camera
+    position before the prediction."""
     c, le, md = cfg.capacity, cfg.lm_edims, cfg.meas_dims
     n = cfg.err_dim
     ce = cfg.cam_edims
@@ -476,7 +477,9 @@ def mekf_step(cfg: MekfConfig, state: MekfState,
     if cfg.motion_model == "cv":
         cov0 = state.cov.clone()
         if cfg.vel_decay < 1.0:
-            rho = torch.tensor(cfg.vel_decay, dtype=dt, device=dev)
+            # a fill on the device, not a copy from the host (which a
+            # CUDA graph cannot capture): the same f32 rounding of vel_decay
+            rho = torch.full((), cfg.vel_decay, dtype=dt, device=dev)
             state = state._replace(vel=rho * state.vel)
             rho_c = rho.to(cdt)  # bf16-cov storage rounds rho first
             cov0[..., _DV, :] *= rho_c
@@ -583,20 +586,26 @@ def mekf_step(cfg: MekfConfig, state: MekfState,
         resid = resid_rows.reshape(*lead, -1)
         r_diag = torch.where(torch.repeat_interleave(mask, md, dim=-1),
                              r_rows.reshape(*lead, -1), 1.0).to(dt)
-    cov_pred = cov
-    if use_kernel:
-        innovation, cov = cuda_mekf.fused_update(
-            cov.contiguous(), h_mat.contiguous(), r_diag.contiguous(),
-            resid.contiguous(), ns_iters=cfg.ns_iters)
-    else:
-        innovation, cov = _update_xla_form(cfg, cov, h_mat, r_diag, resid)
+    pred = MekfState(cam_t=state.cam_t, cam_q=state.cam_q, lm=lm, cov=cov,
+                     active=active, vel=state.vel, dropped_obs=dropped_obs)
+    return pred, h_mat, r_diag, resid, prev_t
 
+
+def _correct(cfg: MekfConfig, pred: MekfState, innovation: torch.Tensor,
+             cov: torch.Tensor, prev_t: torch.Tensor) -> MekfState:
+    """A step after its update: the innovation and the updated
+    covariance ``cov`` applied to `_linearize`'s ``pred``, under the
+    divergence guard (whose fallback is ``pred.cov``). Updates
+    ``pred.lm`` in place."""
+    c, le, ce = cfg.capacity, cfg.lm_edims, cfg.cam_edims
+    lead = pred.active.shape[:-1]
     if cfg.divergence_guard:
         innovation = torch.where(
             torch.isfinite(innovation).all(-1, keepdim=True), innovation,
             0.0)
-    cam_t = state.cam_t + innovation[..., _DT]
-    cam_q = quat.normalize(_perturb(state.cam_q, innovation[..., _DTH]))
+    cam_t = pred.cam_t + innovation[..., _DT]
+    cam_q = quat.normalize(_perturb(pred.cam_q, innovation[..., _DTH]))
+    lm = pred.lm
     lm_inn = innovation[..., ce:].reshape(*lead, c, le)
     lm[..., :3] += lm_inn[..., :3]
     if cfg.with_rotations:
@@ -605,17 +614,35 @@ def mekf_step(cfg: MekfConfig, state: MekfState,
     if cfg.divergence_guard:
         cov = torch.where(
             torch.isfinite(cov).all(-1).all(-1)[..., None, None], cov,
-            cov_pred)
+            pred.cov)
 
     if cfg.motion_model == "cv":
-        vel = state.vel + innovation[..., _DV]
+        vel = pred.vel + innovation[..., _DV]
     elif cfg.vel_smoothing > 0.0:
         b = cfg.vel_smoothing
-        vel = b * state.vel + (1.0 - b) * (cam_t - prev_t)
+        vel = b * pred.vel + (1.0 - b) * (cam_t - prev_t)
     else:
-        vel = state.vel
+        vel = pred.vel
     return MekfState(cam_t=cam_t, cam_q=cam_q, lm=lm, cov=cov,
-                     active=active, vel=vel, dropped_obs=dropped_obs)
+                     active=pred.active, vel=vel,
+                     dropped_obs=pred.dropped_obs)
+
+
+def mekf_step(cfg: MekfConfig, state: MekfState,
+              obs: FrameObservations) -> MekfState:
+    """One frame: activate new landmarks → predict → update. With a
+    leading stream axis on every field, S filters step at once and the
+    update is one kernel launch."""
+    use_kernel = _validate(cfg)
+    pred, h_mat, r_diag, resid, prev_t = _linearize(cfg, state, obs)
+    if use_kernel:
+        innovation, cov = cuda_mekf.fused_update(
+            pred.cov.contiguous(), h_mat.contiguous(), r_diag.contiguous(),
+            resid.contiguous(), ns_iters=cfg.ns_iters)
+    else:
+        innovation, cov = _update_xla_form(cfg, pred.cov, h_mat, r_diag,
+                                           resid)
+    return _correct(cfg, pred, innovation, cov, prev_t)
 
 
 def _frame(seq: FrameObservations, i: int, axis: int) -> FrameObservations:
@@ -623,22 +650,220 @@ def _frame(seq: FrameObservations, i: int, axis: int) -> FrameObservations:
                                for x in seq))
 
 
+def _assign(dst: NamedTuple, src: NamedTuple) -> None:
+    """Copy each field of ``src`` into ``dst``'s (None fields and a
+    field that is ``dst``'s own tensor skipped)."""
+    for d, x in zip(dst, src):
+        if d is not None and x is not d:
+            d.copy_(x)
+
+
+class _GraphedStep:
+    """`mekf_step` for one `_runner_key` as two CUDA graphs around the
+    fused update, on static buffers: the state, one frame's
+    observations (every field a view of one byte buffer, ``packed``, so
+    that one copy loads a frame), the update's outputs and the pose.
+
+    Graph A runs `_linearize` and writes the predicted state, its
+    covariance included, back into the static state. The fused update
+    (B3) is called eagerly between the graphs, so that its launch
+    counter and a wrapper around it see every frame; it writes buffers
+    of its own. Graph B runs `_correct` and writes the new state and
+    the pose back. The rows graph A leaves for B3 live in the graphs'
+    memory pool and are read in the frame that writes them, so all the
+    runners of a device share one pool."""
+
+    def __init__(self, cfg: MekfConfig, state: MekfState,
+                 frame: FrameObservations, stream):
+        self.cfg = cfg
+        self.stream = stream  # the capture stream (`_capture_stream`)
+
+        def like(x, shape=None):
+            return torch.empty(x.shape if shape is None else shape,
+                               dtype=x.dtype, device=x.device)
+        self.state = MekfState(*map(like, state))
+        # byte ranges of the present fields, wider elements first so that
+        # each field starts at a multiple of its element size
+        self.layout, start = [], 0
+        for i in sorted((i for i, x in enumerate(frame) if x is not None),
+                        key=lambda i: -frame[i].element_size()):
+            end = start + frame[i].numel() * frame[i].element_size()
+            self.layout.append((i, start, end))
+            start = end
+        self.packed = torch.empty(start, dtype=torch.uint8,
+                                  device=state.cov.device)
+        views = [None] * len(frame)
+        for i, a, b in self.layout:
+            views[i] = self.packed[a:b].view(frame[i].dtype).view(
+                frame[i].shape)
+        self.obs = FrameObservations(*views)
+        self.prev_t = like(state.cam_t)
+        self.inn = like(state.cov, state.cov.shape[:-1])
+        self.cov_new = like(state.cov)
+        self.pose = like(state.cam_t, (*state.cam_t.shape[:-1], 7))
+        self.rows = None    # graph A's h_mat, r_diag and resid
+        self.graphs = None  # (graph A, graph B) once captured
+
+    def pack(self, obs_seq: FrameObservations, axis: int) -> torch.Tensor:
+        """A sequence's observations as (T, bytes a frame) rows in the
+        layout of ``packed``."""
+        t = obs_seq.mask.shape[axis]
+        return torch.cat([obs_seq[i].movedim(axis, 0).reshape(t, -1)
+                          .view(torch.uint8) for i, _, _ in self.layout], 1)
+
+    def predict(self) -> None:
+        """Graph A's work."""
+        pred, *rows, prev_t = _linearize(self.cfg, self.state, self.obs)
+        self.prev_t.copy_(prev_t)
+        _assign(self.state, pred)
+        self.rows = [x.contiguous() for x in rows]
+
+    def update(self) -> None:
+        """B3 on the predicted covariance, into ``inn`` and ``cov_new``."""
+        cuda_mekf.fused_update(self.state.cov, *self.rows,
+                               ns_iters=self.cfg.ns_iters,
+                               out=(self.inn, self.cov_new))
+
+    def correct(self) -> None:
+        """Graph B's work."""
+        _assign(self.state, _correct(self.cfg, self.state, self.inn,
+                                     self.cov_new, self.prev_t))
+        torch.cat([self.state.cam_t, self.state.cam_q], -1, out=self.pose)
+
+    def step(self) -> None:
+        """One frame on the static buffers: replayed once captured; the
+        first frame eagerly, then the capture."""
+        if self.graphs is None:
+            self._capture()
+            mekf_scan.eager_steps += 1
+            return
+        graph_a, graph_b = self.graphs
+        graph_a.replay()
+        self.update()
+        graph_b.replay()
+        mekf_scan.graph_steps += 1
+
+    def _capture(self) -> None:
+        """Step the frame eagerly on the capture stream (what initialises
+        lazily, cuBLAS's workspace for the stream among it, does so
+        outside the capture), then capture graph A and graph B."""
+        dev = self.state.cov.device
+        if dev not in _GRAPH_POOLS:
+            _GRAPH_POOLS[dev] = torch.cuda.graph_pool_handle()
+        caller = torch.cuda.current_stream(dev)
+        self.stream.wait_stream(caller)
+        with torch.cuda.stream(self.stream):
+            self.predict()
+            self.update()
+            self.correct()
+        caller.wait_stream(self.stream)
+        graphs = (torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph())
+        for graph, part in zip(graphs, (self.predict, self.correct)):
+            with torch.cuda.graph(graph, pool=_GRAPH_POOLS[dev],
+                                  stream=self.stream,
+                                  capture_error_mode="thread_local"):
+                part()
+        self.graphs = graphs
+        mekf_scan.captures += 1
+
+
+# a device's graph memory pool and side stream; the runners by key
+_GRAPH_POOLS: dict = {}
+_SIDE_STREAMS: dict = {}
+_RUNNERS: dict = {}
+
+
+def _capture_stream(dev: torch.device):
+    """The stream a runner for the caller's current stream captures on:
+    that stream, or, where it is the default stream (which cannot
+    capture), a side stream of the device's own. cuBLAS keeps a
+    workspace for each stream it runs on (32 MiB on an H100) and a graph
+    keeps its capture stream's, so graphs captured on the stream that
+    the caller's eager work runs on add none: `apps.run_slam` runs its
+    requests on a stream of their own (`_device.request_stream`) for
+    this."""
+    current = torch.cuda.current_stream(dev)
+    if current != torch.cuda.default_stream(dev):
+        return current
+    if dev not in _SIDE_STREAMS:
+        _SIDE_STREAMS[dev] = torch.cuda.Stream(dev)
+    return _SIDE_STREAMS[dev]
+
+
+def _graphable(cfg: MekfConfig, state: MekfState) -> bool:
+    """Whether `mekf_scan` replays the step from CUDA graphs: a state on
+    a card, an update by the fused kernel (`_validate`; the XLA-form one
+    factorises with cuSOLVER, which is not captured), and a stream not
+    capturing already."""
+    return (state.cov.device.type == "cuda" and _validate(cfg)
+            and not torch.cuda.is_current_stream_capturing())
+
+
+def _runner_key(cfg: MekfConfig, state: MekfState,
+                frame: FrameObservations, stream=None) -> tuple:
+    """What a runner's graphs are fixed to: the config, the dtype,
+    shape and device of every state field (the stream count S among
+    them) and of one frame's observations (None for an absent optional
+    field), and the stream they replay on. Not the sequence length:
+    every chunk replays the same graphs."""
+    def sig(x):
+        return None if x is None else (x.dtype, tuple(x.shape), x.device)
+    return (cfg, tuple(map(sig, state)), tuple(map(sig, frame)), stream)
+
+
+def _graphed_scan(cfg: MekfConfig, state: MekfState,
+                  obs_seq: FrameObservations, axis: int, t: int):
+    dev = state.cov.device
+    frame = _frame(obs_seq, 0, axis)
+    key = _runner_key(cfg, state, frame, torch.cuda.current_stream(dev))
+    run = _RUNNERS.get(key)
+    if run is None:
+        run = _RUNNERS[key] = _GraphedStep(cfg, state, frame,
+                                           _capture_stream(dev))
+    with torch.cuda.device(dev):
+        _assign(run.state, state)
+        traj = torch.empty((*state.cam_t.shape[:-1], t, 7),
+                           dtype=state.cam_t.dtype, device=dev)
+        packed = run.pack(obs_seq, axis)
+        for i in range(t):
+            run.packed.copy_(packed[i])
+            run.step()
+            traj.select(axis, i).copy_(run.pose)
+        return MekfState(*(x.clone() for x in run.state)), traj
+
+
 def mekf_scan(cfg: MekfConfig, state: MekfState,
               obs_seq: FrameObservations):
     """Filter a (T, ...) observation sequence frame by frame — or, for a
     state with a leading stream axis, an (S, T, ...) one, the S streams
     stepping together. Returns the final state and the camera trajectory
-    (T, 7) or (S, T, 7) [xyz, quat wxyz]."""
+    (T, 7) or (S, T, 7) [xyz, quat wxyz], tensors of the caller's own.
+
+    Where `_graphable` holds, each frame copies its observations in (one
+    copy), replays graph A, calls the fused update and replays graph B
+    (`_GraphedStep`, one a `_runner_key`, captured on its first frame):
+    the kernels `mekf_step` launches, in its order, from two graph
+    launches and B3's own. Elsewhere the frames run `mekf_step`. Counters: ``captures``,
+    ``graph_steps`` (frames replayed) and ``eager_steps`` (the runners'
+    first frames, stepped before their capture)."""
     batched = state.cov.dim() == 3
     axis = 1 if batched else 0
+    t = obs_seq.mask.shape[axis]
+    if t and _graphable(cfg, state):
+        return _graphed_scan(cfg, state, obs_seq, axis, t)
     traj = []
-    for i in range(obs_seq.mask.shape[axis]):
+    for i in range(t):
         state = mekf_step(cfg, state, _frame(obs_seq, i, axis))
         traj.append(torch.cat([state.cam_t, state.cam_q], -1))
     if not traj:
         return state, torch.zeros((*state.cam_t.shape[:-1], 0, 7),
                                   dtype=cfg.dtype, device=state.cov.device)
     return state, torch.stack(traj, axis)
+
+
+mekf_scan.captures = 0
+mekf_scan.graph_steps = 0
+mekf_scan.eager_steps = 0
 
 
 def preload_map(cfg: MekfConfig, state: MekfState, ids, positions,

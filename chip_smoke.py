@@ -3012,8 +3012,9 @@ def _counting_calls(calls: dict):
     """Within the block, count the detection batches
     (`detect.detect_markers`: B1 3 launches, B2 1 each), the tracked
     batches (`detect.track_markers`: B2 3 each) and the filter steps
-    (`mekf.mekf_step`: B3 1 each on the kernel's configurations, all
-    streams at once) that the drivers make."""
+    (`mekf.mekf_step`, and ``runner_steps``, the frames `mekf_scan`'s
+    CUDA-graph runners step: B3 1 each on the kernel's configurations,
+    all streams at once) that the drivers make."""
     from aruco_slam_tpu_torch.filters import mekf
     from aruco_slam_tpu_torch.ops import detect
     real = {(detect, "detect_markers"): detect.detect_markers,
@@ -3026,20 +3027,25 @@ def _counting_calls(calls: dict):
             return fn(*args, **kw)
         return wrapped
 
+    def runner_steps():
+        return mekf.mekf_scan.graph_steps + mekf.mekf_scan.eager_steps
+
     for (mod, name), fn in real.items():
         calls[name] = 0
         setattr(mod, name, counting(name, fn))
+    before = runner_steps()
     try:
         yield
     finally:
         for (mod, name), fn in real.items():
             setattr(mod, name, fn)
+        calls["runner_steps"] = runner_steps() - before
 
 
 def _expected_b123(calls: dict) -> list:
     return [3 * calls["detect_markers"],
             calls["detect_markers"] + 3 * calls["track_markers"],
-            calls["mekf_step"]]
+            calls["mekf_step"] + calls["runner_steps"]]
 
 
 def _e2e_run_slam(tmp: Path, frames, flags, tag: str):

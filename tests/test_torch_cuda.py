@@ -1018,3 +1018,143 @@ def test_viewer_path_on_card(device, image_seq, tmp_path):
             want = read_png_rgb(tmp_path / "cpu" / sub / name)
             differ = (got != want).any(axis=-1).sum()
             assert differ <= 0.005 * got.shape[0] * got.shape[1], name
+
+
+# the benchmark cells' filter: run_slam's defaults at capacity 64 and
+# max_obs 16 (N 201, M 48; N 393, M 112 with rotations)
+GRAPH_CELL = dict(capacity=64, max_obs=16, motion_model="cv",
+                  pixel_sigma=1.0, gate_distance=1.0, r_uncertainty=0.005,
+                  q_uncertainty_cam=1.0, q_error_uncertainty_cam=1.0,
+                  q_uncertainty_lm=0.0, q_vel=2e-3, vel_decay=0.99)
+
+
+def _graph_cell_obs(device, streams, frames):
+    """(T, ...) observations of a 12-marker wall along an orbit, or
+    (S, T, ...) with one noise seed a stream."""
+    from aruco_slam_tpu_torch.bench import synthetic
+    from aruco_slam_tpu_torch.filters import mekf as tm
+    scene = synthetic.make_wall_scene(num_markers=12, seed=0)
+    traj = synthetic.make_orbit_trajectory(num_frames=frames)
+    seqs = [synthetic.observe_poses(scene, traj, 64, noise_t=0.005,
+                                    noise_r=0.005, fov_limit=0.75,
+                                    seed=10 + s) for s in range(streams or 1)]
+    fields = []
+    for k in ("t_cl", "q_cl", "mask"):
+        a = np.stack([getattr(o, k) for o in seqs]) if streams \
+            else getattr(seqs[0], k)
+        fields.append(torch.tensor(
+            a if a.dtype == bool else a.astype(np.float32), device=device))
+    return tm.FrameObservations(*fields)
+
+
+def _graph_counts():
+    from aruco_slam_tpu_torch.filters import mekf as tm
+    return np.array([tm.mekf_scan.captures, tm.mekf_scan.graph_steps,
+                     tm.mekf_scan.eager_steps, cuda_mekf.fused_update.launches])
+
+
+@pytest.mark.parametrize("streams,rotations", [(None, False), (8, False),
+                                               (None, True)])
+def test_graphed_scan_is_the_eager_scan(device, monkeypatch, streams,
+                                        rotations):
+    """`mekf_scan` on the card replays its runner's two graphs around B3.
+    At the benchmark cells' filter config, over 128 frames and over the
+    same frames split 32 + 96: every state field and the trajectory bit
+    for bit the `mekf_step` loop's; one capture for the key (the split
+    scans replay it); every frame counted once, as a replay or as the
+    runner's eager first frame; B3 once a frame; and the first scan's
+    results its own (the later scans leave them as they were)."""
+    from aruco_slam_tpu_torch.filters import mekf as tm
+    from aruco_slam_tpu_torch.parallel import multi_slam
+    monkeypatch.setattr(tm, "_RUNNERS", {})
+    cfg = tm.MekfConfig(**GRAPH_CELL, with_rotations=rotations)
+    obs = _graph_cell_obs(device, streams, 128)
+    axis = 1 if streams else 0
+    state0 = tm.init_state(cfg, device=device)
+    if streams:
+        state0 = multi_slam.stack_states([state0] * streams)
+    want, poses = state0, []
+    for i in range(128):
+        want = tm.mekf_step(cfg, want, tm._frame(obs, i, axis))
+        poses.append(tm.camera_pose(want))
+    want_traj = torch.stack(poses, axis)
+    c0 = _graph_counts()
+    got, traj = tm.mekf_scan(cfg, state0, obs)
+    c1 = _graph_counts()
+
+    def cut(lo, hi):
+        return tm.FrameObservations(*(x.narrow(axis, lo, hi - lo)
+                                      for x in obs[:3]))
+
+    mid, traj_a = tm.mekf_scan(cfg, state0, cut(0, 32))
+    got2, traj_b = tm.mekf_scan(cfg, mid, cut(32, 128))
+    c2 = _graph_counts()
+    torch.cuda.synchronize()
+    assert list(c1 - c0) == [1, 127, 1, 128]
+    assert list(c2 - c1) == [0, 128, 0, 128]
+    assert len(tm._RUNNERS) == 1
+    for name, a, b, c in zip(tm.MekfState._fields, got, want, got2):
+        assert torch.equal(a, b) and torch.equal(c, b), name
+    assert torch.equal(traj, want_traj)
+    assert torch.equal(torch.cat([traj_a, traj_b], axis), want_traj)
+
+
+def test_graphed_step_reads_nothing_back(device, monkeypatch):
+    """Graph A's work, the update and graph B's, run eagerly on the
+    runner's buffers, then a whole replayed scan, under
+    torch.cuda.set_sync_debug_mode("error"): nothing waits on the
+    card."""
+    from aruco_slam_tpu_torch.filters import mekf as tm
+    monkeypatch.setattr(tm, "_RUNNERS", {})
+    cfg = tm.MekfConfig(**GRAPH_CELL)
+    obs = _graph_cell_obs(device, None, 8)
+    state = tm.init_state(cfg, device=device)
+    tm.mekf_scan(cfg, state, obs)  # the capture
+    run, = tm._RUNNERS.values()
+    before = tm.mekf_scan.graph_steps
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run.predict()
+        run.update()
+        run.correct()
+        _, traj = tm.mekf_scan(cfg, state, obs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert tm.mekf_scan.graph_steps - before == 8
+    assert bool(torch.isfinite(traj).all())
+
+
+def test_run_slam_graphs_share_its_stream(device, tmp_path, monkeypatch):
+    """run_slam runs a request on the card's request stream, and its
+    filter's graphs are captured and replayed there (so cuBLAS keeps no
+    workspace for another stream): a second request replays the first
+    one's runner and ends holding the device memory the first left."""
+    from aruco_slam_tpu_torch import _device
+    from aruco_slam_tpu_torch.apps import run_slam
+    from aruco_slam_tpu_torch.bench import synthetic
+    from aruco_slam_tpu_torch.filters import mekf as tm
+    from aruco_slam_tpu_torch.io import save_npz
+    monkeypatch.setattr(tm, "_RUNNERS", {})
+    scene = synthetic.make_wall_scene(num_markers=12, seed=0)
+    traj = synthetic.make_orbit_trajectory(num_frames=48)
+    obs = synthetic.observe_poses(scene, traj, 64, noise_t=0.005,
+                                  noise_r=0.005, fov_limit=0.75)
+    npz = tmp_path / "poses.npz"
+    save_npz(npz, times=traj.times, t_cl=obs.t_cl.astype(np.float32),
+             q_cl=obs.q_cl.astype(np.float32), mask=obs.mask)
+    argv = ["--input", str(npz), "--platform", "cuda", "--max-obs", "16",
+            "--trajectory", str(tmp_path / "t.txt"),
+            "--map", str(tmp_path / "m.txt")]
+    first = run_slam.main(argv)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    c0 = _graph_counts()
+    second = run_slam.main(argv)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == held
+    assert list(_graph_counts() - c0) == [0, 48, 0, 48]
+    run, = tm._RUNNERS.values()
+    stream = _device._REQUEST_STREAMS[torch.device("cuda", 0)]
+    assert run.stream == stream
+    assert np.array_equal(first.cam_traj, second.cam_traj)
