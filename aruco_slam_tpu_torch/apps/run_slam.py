@@ -35,8 +35,12 @@ chunks), ``--resume PATH`` restarts from such a file (JAX's format:
 ``--profile DIR`` writes a torch.profiler trace of the run, from the
 input's load to the output files, to DIR/trace.json, where the run's
 spans (`utils.profiling.StageTimer`: ``input.load``, ``front_end.*``,
-``filter.*``, ``output.write``) appear as user annotations. The fleet
-writes no checkpoint (as in JAX).
+``filter.*``, ``output.write``) appear as user annotations. The timer
+also counts the rows of each frame's fused update (B3):
+``filter.update_rows``, those that carry an observation, and
+``filter.update_row_slots``, all M of them (`_count_update_rows`);
+``RunResult.counters`` returns them. The fleet writes no checkpoint (as
+in JAX).
 
 ``--viz-2d`` (the overlay on the real frames), ``--viz-3d`` (the map,
 ``--viz-3d-renderer mpl|fast``) and ``--display`` (live windows; without
@@ -106,6 +110,7 @@ class RunResult(NamedTuple):
     landmark_ids: np.ndarray  # marker ids in the map file
     ate: float | None         # vs the input's gt_cam_t, when present
     seconds: dict             # wall time per stage
+    counters: dict            # the request's counters (StageTimer.count)
 
 
 def _sync(device: torch.device) -> None:
@@ -451,6 +456,19 @@ def _preload(fcfg: MekfConfig, state, load_map_file, slot_ids):
     return state
 
 
+def _count_update_rows(timer: StageTimer, fcfg: MekfConfig, mask) -> None:
+    """Count the fused update's rows for the frames of ``mask`` ((..., C)
+    accepted observations a frame, on the host): ``filter.update_rows``,
+    the rows that carry an observation (min(observations, M / meas_dims)
+    x meas_dims a frame), and ``filter.update_row_slots``, all M rows of
+    each frame. The rows the innovation gate then zeroes on the device
+    still count."""
+    k = min(fcfg.max_obs, fcfg.capacity)
+    obs = np.minimum((np.asarray(mask) != 0).sum(-1), k)
+    timer.count("filter.update_rows", int(obs.sum()) * fcfg.meas_dims)
+    timer.count("filter.update_row_slots", obs.size * k * fcfg.meas_dims)
+
+
 def _warn_dropped(dropped: np.ndarray, max_obs: int) -> None:
     """Warn when the max_obs compaction dropped observations (a count, or
     one per stream)."""
@@ -512,7 +530,8 @@ def run_mekf(cfg: SlamAppConfig, times, t_cl, q_cl, mask, cam,
     the run, and cam_traj then holds the frames done. ``timer`` takes
     the spans ``filter.upload``, ``filter.scan`` (each chunk's scan) and
     ``filter.readback``, or with viewers the loop's ``step`` and
-    ``read``."""
+    ``read``, and the update's rows of every frame filtered
+    (`_count_update_rows`)."""
     timer = timer or StageTimer()
     max_obs = _auto_max_obs(cfg, mask, t_cl.shape[1])
     fcfg = _mekf_config(cfg, t_cl.shape[1], max_obs, with_rotations, cam)
@@ -538,6 +557,7 @@ def run_mekf(cfg: SlamAppConfig, times, t_cl, q_cl, mask, cam,
             with timer.stage("step"):
                 state = mekf_step(fcfg, state, FrameObservations(
                     *(None if a is None else a[i] for a in seq)))
+            _count_update_rows(timer, fcfg, mask[i])
             cam_traj[i], lm, active = _snapshot(
                 torch.cat([state.cam_t, state.cam_q]), state.lm,
                 state.active, timer)
@@ -559,6 +579,7 @@ def run_mekf(cfg: SlamAppConfig, times, t_cl, q_cl, mask, cam,
             with timer.stage("filter.scan"):
                 state, traj = mekf_scan(fcfg, state, FrameObservations(
                     *(None if a is None else a[s:e] for a in seq)))
+            _count_update_rows(timer, fcfg, mask[s:e])
             with timer.stage("filter.readback"):
                 cam_traj[s:e] = traj.cpu().numpy()
             if ckpt_every and ckpt_path is not None and e < tt:
@@ -859,6 +880,7 @@ def run_multi_stream(cfg: SlamAppConfig, inputs: list[str], calib_dir,
         states, trajs = multi_slam.batched_mekf_scan(
             fcfg, states, FrameObservations(t_cl, q_cl, mask, amb),
             mesh=mesh)
+    _count_update_rows(timer, fcfg, mask_np)
     with timer.stage("filter.readback"):
         states = MekfState(*(x.to(device) for x in states))
         trajs = trajs.cpu().numpy()
@@ -880,6 +902,7 @@ def run_multi_stream(cfg: SlamAppConfig, inputs: list[str], calib_dir,
         lm = states.lm.cpu().numpy()[..., :3]
         table_np = tables.cpu().numpy()
     _warn_dropped(dropped, fcfg.max_obs)
+    counters = {}  # the request's, as ``seconds``: filled by `main`
     with timer.stage("output.write"):
         results = []
         for i in range(s):
@@ -901,7 +924,7 @@ def run_multi_stream(cfg: SlamAppConfig, inputs: list[str], calib_dir,
                 line += f", ATE {err:.4f} m"
             print(line)
             results.append(RunResult(tf, mf, trajs[i], mask_np[i], ids, err,
-                                     seconds))
+                                     seconds, counters))
         return results
 
 
@@ -1051,12 +1074,14 @@ def main(argv=None) -> RunResult | list[RunResult]:
     """One request: the whole call is the span ``run_slam.request``, and
     each result's ``seconds`` also holds every span's seconds summed by
     name (`utils.profiling.StageTimer`; the viewer loop's stages among
-    them)."""
+    them), its ``counters`` the request's counters (a fleet's summed
+    over its streams)."""
     timer = StageTimer(request_id=uuid.uuid4().hex)
     with timer.stage("run_slam.request"):
         out = _serve(argv, timer)
     for res in out if isinstance(out, list) else [out]:
         res.seconds.update(timer.totals)
+        res.counters.update(timer.counters)
     return out
 
 
@@ -1144,7 +1169,7 @@ def _serve(argv, timer: StageTimer) -> RunResult | list[RunResult]:
                 print(f"ATE vs ground truth: {err:.4f} m")
     _wrote_trace(args.profile)
     return RunResult(cfg.trajectory_file, cfg.map_file, cam_traj,
-                     np.asarray(mask), np.asarray(ids), err, seconds)
+                     np.asarray(mask), np.asarray(ids), err, seconds, {})
 
 
 def _wrote_trace(profile) -> None:

@@ -9,7 +9,10 @@ its name, start, end and enclosing span are kept in memory on the timer
 the stage opens a `record_function` range of its name, so the span lands
 in the profiler's trace as a ``user_annotation`` on the device events'
 clock. With no profiler running a span only reads the clock twice and
-checks for one (a few microseconds of Python). `device_trace` records
+checks for one (a few microseconds of Python). Beside the spans the
+timer keeps counters (`StageTimer.count`, summed by name in
+`StageTimer.counters`): numbers the host already holds, counted without
+touching the device. `device_trace` records
 a `torch.profiler` trace (the CPU activity, and the CUDA activity where
 a card is present) and writes it as ``logdir/trace.json`` (Chrome trace
 format, as Perfetto and chrome://tracing read it).
@@ -55,13 +58,14 @@ class Span(NamedTuple):
 
 
 class StageTimer:
-    """Accumulating wall-clock timer by stage name, and the record of
-    every stage as a span. ``request_id`` goes with each span's profiler
-    range, so the spans of one request share it."""
+    """Accumulating wall-clock timer by stage name, the record of every
+    stage as a span, and counters by name. ``request_id`` goes with each
+    span's profiler range, so the spans of one request share it."""
 
     def __init__(self, request_id: str | None = None) -> None:
         self.totals: dict[str, float] = defaultdict(float)
         self.counts: dict[str, int] = defaultdict(int)
+        self.counters: dict[str, int] = defaultdict(int)
         # in the order they opened; an open span's place holds None
         self.spans: list[Span | None] = []
         self.request_id = request_id
@@ -73,6 +77,10 @@ class StageTimer:
         for it before the span ends; without one the span waits for
         nothing."""
         return _Stage(self, name, result)
+
+    def count(self, name: str, n: int) -> None:
+        """Add ``n`` to the counter ``name``."""
+        self.counters[name] += int(n)
 
 
 class _Stage:
