@@ -38,6 +38,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "build"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+# a source's own flags, after NVCC_FLAGS: the PnP kernel rounds every
+# product and sum on its own, as the eager chain it must equal bit for
+# bit does (csrc/pnp_square.cu)
+SOURCE_FLAGS = {"pnp_square.cu": ["-fmad=false"]}
 
 # seconds the last nvcc build took in this process (0.0 = the library
 # was already built and only loaded)
@@ -64,6 +68,7 @@ def sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -101,8 +106,8 @@ def build() -> Path:
         srcs = sorted(CSRC.glob("*.cu"))
         objs = [tmp / f"{src.stem}.o" for src in srcs]
         t0 = time.perf_counter()
-        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-              for src, obj in zip(srcs, objs)])
+        _run([[nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src.name, []), "-c",
+               "-o", str(obj), str(src)] for src, obj in zip(srcs, objs)])
         _run([[nvcc, *ARCH, "-shared", "-o", str(tmp / out.name),
                *map(str, objs)]])
         os.replace(tmp / out.name, out)

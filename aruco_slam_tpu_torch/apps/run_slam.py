@@ -38,7 +38,9 @@ spans (`utils.profiling.StageTimer`: ``input.load``, ``front_end.*``,
 ``filter.*``, ``output.write``) appear as user annotations. The timer
 also counts the rows of each frame's fused update (B3):
 ``filter.update_rows``, those that carry an observation, and
-``filter.update_row_slots``, all M of them (`_count_update_rows`);
+``filter.update_row_slots``, all M of them (`_count_update_rows`), and
+the markers of each PnP call, ``front_end.pnp_markers``, and those the
+CUDA kernel solved, ``front_end.pnp_kernel_markers`` (`_solve_pnp`);
 ``RunResult.counters`` returns them. The fleet writes no checkpoint (as
 in JAX).
 
@@ -91,7 +93,7 @@ from aruco_slam_tpu_torch.graph import (
 from aruco_slam_tpu_torch.io import (
     NpzSource, PrefetchingFrameSource, TrajectoryWriter, is_video, load_map,
     save_map, video_frames)
-from aruco_slam_tpu_torch.ops import detect, pnp
+from aruco_slam_tpu_torch.ops import cuda_pnp, detect, pnp
 from aruco_slam_tpu_torch.parallel import dist as pdist
 from aruco_slam_tpu_torch.parallel import multi_slam
 from aruco_slam_tpu_torch.utils.checkpoint import (
@@ -193,8 +195,8 @@ def _observations_from_frames(frame_iter, cam, cfg: SlamAppConfig,
                                                *cands)
         fidx += n
         with timer.stage("front_end.pnp"):
-            outs.append(_pnp_chunk(cam, cfg, det_c, det_m, reset, ids_f,
-                                   dropped, n))
+            outs.append(_pnp_chunk(timer, cam, cfg, det_c, det_m, reset,
+                                   ids_f, dropped, n))
         buf.clear()
 
     for ts, gray in frame_iter:
@@ -212,7 +214,8 @@ def _observations_from_frames(frame_iter, cam, cfg: SlamAppConfig,
 def _observations_from_frames_sharded(frame_iter, cam, cfg: SlamAppConfig,
                                       device: torch.device, pid: int,
                                       nproc: int, chunk: int = 32,
-                                      total: int | None = None):
+                                      total: int | None = None,
+                                      timer: StageTimer | None = None):
     """Distributed image front end (run_offline --distributed), the JAX
     run_slam's: chunk c's candidate pipeline (threshold, labeling,
     harvest, subpixel, decode: B1 and B2) runs only on process c % nproc;
@@ -222,7 +225,9 @@ def _observations_from_frames_sharded(frame_iter, cam, cfg: SlamAppConfig,
     batched PnP, in the single-process front end's chunks and shapes, so
     the observations are bit-identical to `_observations_from_frames`.
     With ``total`` frames known, the chunk shrinks so that every process
-    owns one; a process that still owns none raises."""
+    owns one; a process that still owns none raises. ``timer`` takes
+    each chunk's ``front_end.pnp`` span and counters."""
+    timer = timer or StageTimer()
     if cfg.track_every:
         raise ValueError("--distributed ingest shards full detection; "
                          "tracked streaming (--track-every) is "
@@ -284,16 +289,32 @@ def _observations_from_frames_sharded(frame_iter, cam, cfg: SlamAppConfig,
                 (scan_chunk - n, *det_c.shape[1:]))])
             det_m = torch.cat([det_m, det_m.new_zeros(
                 (scan_chunk - n, *det_m.shape[1:]))])
-        outs.append(_pnp_chunk(cam, cfg, det_c, det_m, reset, ids_f,
-                               dropped, n))
+        with timer.stage("front_end.pnp"):
+            outs.append(_pnp_chunk(timer, cam, cfg, det_c, det_m, reset,
+                                   ids_f, dropped, n))
     return _loader_tuple(times, outs, cam, table, cfg, dcfg, warn=pid == 0)
 
 
-def _pnp_chunk(cam, cfg: SlamAppConfig, det_c, det_m, reset, ids_f,
-               dropped, n: int):
-    """A chunk's slot corners through batched PnP: (t_cl, q_cl, mask,
-    ambiguity, reset, ids_f, dropped, n real frames)."""
-    res = pnp.solve_square_pnp(cam, det_c, cfg.marker_size)
+def _solve_pnp(timer: StageTimer, cam, corners, marker_size: float):
+    """`pnp.solve_square_pnp` with the front end's two counters:
+    ``front_end.pnp_markers``, the markers solved, and
+    ``front_end.pnp_kernel_markers``, those of them the CUDA kernel
+    solved (`cuda_pnp.solve`'s launches before and after). Both come
+    from shapes the host holds: no sync."""
+    before = cuda_pnp.solve.launches
+    res = pnp.solve_square_pnp(cam, corners, marker_size)
+    n = corners[..., 0, 0].numel()
+    timer.count("front_end.pnp_markers", n)
+    timer.count("front_end.pnp_kernel_markers",
+                n * (cuda_pnp.solve.launches - before))
+    return res
+
+
+def _pnp_chunk(timer: StageTimer, cam, cfg: SlamAppConfig, det_c, det_m,
+               reset, ids_f, dropped, n: int):
+    """A chunk's slot corners through batched PnP (`_solve_pnp`): (t_cl,
+    q_cl, mask, ambiguity, reset, ids_f, dropped, n real frames)."""
+    res = _solve_pnp(timer, cam, det_c, cfg.marker_size)
     mask = det_m & (res.err < cfg.max_reproj_px)
     amb = res.err / torch.clamp(res.err2, min=1e-9)
     return res.t_cl, res.q_cl, mask, amb, reset, ids_f, dropped, n
@@ -352,7 +373,7 @@ def load_video_observations(cfg: SlamAppConfig, calib_dir,
     frames = _prefetched_video(cfg.input)
     if shard and shard[1] > 1:
         return _observations_from_frames_sharded(frames, cam, cfg, device,
-                                                 *shard)
+                                                 *shard, timer=timer)
     return _observations_from_frames(frames, cam, cfg, device, timer)
 
 
@@ -378,7 +399,7 @@ def load_observations(src: NpzSource, cfg: SlamAppConfig,
         if shard and shard[1] > 1:
             return _observations_from_frames_sharded(
                 zip(src.times, imgs), cam, cfg, device, *shard,
-                total=len(imgs))
+                total=len(imgs), timer=timer)
         return _observations_from_frames(zip(src.times, imgs), cam, cfg,
                                          device, timer)
     if src.has("corners"):
@@ -387,7 +408,7 @@ def load_observations(src: NpzSource, cfg: SlamAppConfig,
                                       device=device)
             corner_mask = torch.as_tensor(src["corner_mask"], device=device)
         with timer.stage("front_end.pnp"):
-            res = pnp.solve_square_pnp(cam, corners, cfg.marker_size)
+            res = _solve_pnp(timer, cam, corners, cfg.marker_size)
             mask = corner_mask & (res.err < cfg.max_reproj_px)
             amb = res.err / torch.clamp(res.err2, min=1e-9)
         with timer.stage("front_end.readback"):
@@ -856,7 +877,7 @@ def run_multi_stream(cfg: SlamAppConfig, inputs: list[str], calib_dir,
                     detect.assign_sequence_lru(dcfg, tables, seen, c0,
                                                *cands)
         with timer.stage("front_end.pnp"):
-            res = pnp.solve_square_pnp(cam, det_c, cfg.marker_size)
+            res = _solve_pnp(timer, cam, det_c, cfg.marker_size)
             mask = det_m & (res.err < cfg.max_reproj_px)
             amb = res.err / torch.clamp(res.err2, min=1e-9)
             outs.append([x[:, :n] for x in (res.t_cl, res.q_cl, mask, amb)])

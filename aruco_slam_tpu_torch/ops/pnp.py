@@ -8,7 +8,10 @@ ambiguity candidates, and the disambiguation by reprojection error.
 The JAX package writes the whole solve in scalar structure-of-arrays
 form because of the TPU tiler; here the per-corner Gauss-Newton terms
 are stacked over the 4 corners instead (fewer eager launches), and are
-accumulated in the reference's corner order.
+accumulated in the reference's corner order. On a card the whole solve
+is one kernel (`cuda_pnp`); the eager chain is its plain version
+(`solve_square_pnp_plain`). Calibration's f64 LM calls
+`solve_square_pnp_normalized` and always runs the eager chain.
 
 Object frame: tag in the z = 0 plane, corners TL TR BR BL;
 x_cam = R x_obj + t.
@@ -22,6 +25,7 @@ import torch
 
 from aruco_slam_tpu_torch.core import camera as cam_mod
 from aruco_slam_tpu_torch.core import quaternion as quat
+from aruco_slam_tpu_torch.ops import cuda_pnp
 
 _EPS = 1e-12
 _CHOL_EPS = 1e-20
@@ -307,7 +311,23 @@ def solve_square_pnp_normalized(img_xy: torch.Tensor, marker_size,
 def solve_square_pnp(cam: cam_mod.CameraModel, corners_px: torch.Tensor,
                      marker_size, refine_iters: int = 8) -> PnPResult:
     """Batched IPPE-square PnP from distorted pixel corners
-    (..., 4, 2); errors converted to pixels with the mean focal."""
+    (..., 4, 2); errors converted to pixels with the mean focal.
+
+    A CUDA tensor launches ``csrc/pnp_square.cu`` once (`cuda_pnp.solve`,
+    which takes float32 alone and refuses any other); a CPU tensor runs
+    `solve_square_pnp_plain`."""
+    if corners_px.is_cuda:
+        return PnPResult(*cuda_pnp.solve(cam, corners_px, marker_size,
+                                         refine_iters))
+    return solve_square_pnp_plain(cam, corners_px, marker_size,
+                                  refine_iters)
+
+
+def solve_square_pnp_plain(cam: cam_mod.CameraModel,
+                           corners_px: torch.Tensor, marker_size,
+                           refine_iters: int = 8) -> PnPResult:
+    """`solve_square_pnp` in eager PyTorch ops, on any device and
+    dtype: the CUDA kernel's plain version."""
     xy = cam_mod.pixel_to_ray(cam, corners_px)
     batch = xy.shape[:-2]
     res = solve_square_pnp_normalized(xy.reshape(-1, 4, 2), marker_size,

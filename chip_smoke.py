@@ -29,7 +29,9 @@ non-zero, and no result line is printed):
                 (also forced to at most 8, 6 and 4 rounds a launch),
                 B5 patch-fed refinement (refine_corners' 12,288 patches
                 and the calibration CLI's 24 and 12 x 24 chessboard
-                corners); B3 also at the bench drivers' shapes (the
+                corners), the PnP kernel (a corners request's 128 x 64
+                slots and a chunk's 32 x 64, every output bit-identical);
+                B3 also at the bench drivers' shapes (the
                 large map's N = 1545, M = 144 and the headline's 256
                 streams of N = 198, M = 48, inputs captured from their
                 filters run with the kernel), timed beside the XLA-form
@@ -257,6 +259,9 @@ B3_TOL = 1e-4         # f32 gain chain in another summation order
                       # (relative to the largest entry, at least 1)
 B4_TOL = 0            # labels are integers: bit-identical
 B5_TOL = 2e-3         # px: B2's loop on gathered patches, as B2
+PNP_TOL = 0           # bit-identical: the kernel rounds where the eager
+                      # chain's kernels round (NaNs where they are NaN)
+PNP_BYTES = 80         # a marker's bytes: 32 of corners in, 48 out
 B4_SPLITS = (8, 6, 4)  # B4's most rounds a launch, checked and timed
 SIZE = (1920, 1080)   # frame width, height
 TRACK_EVERY = 8       # the streaming path's K
@@ -730,6 +735,112 @@ def _b5(frames, corners_true, mask_true, rng, dev):
             "max_abs_err": worst, **timing, "library_ms": None}
 
 
+def _spd_ops(n: int) -> int:
+    """pnp_square.cu `solve_spd<n>`: the Cholesky factor's inner products
+    (a product and a difference each), its n(n+1)/2 square roots and
+    divisions, and the two triangular solves (n^2 each)."""
+    return (n - 1) * n * (n + 1) // 3 + n * (n + 1) // 2 + 2 * n * n
+
+
+def pnp_ops(refine_iters: int = 8) -> int:
+    """The PnP kernel's arithmetic operations a marker, stage by stage as
+    csrc/pnp_square.cu writes them: +, -, x, /, negation, sqrt, sin, cos,
+    atan2 and |x| one each (it is built without FMAs); comparisons,
+    clamps and selects none. Where a branch changes the count, the
+    larger side: 15,280 at 8 steps. (The device code run on the host
+    with a counting float type, on a marker that takes the smaller side
+    in ippe and to_rotvec, counted 15,278.)"""
+    # a corner: normalize (4), then 8 fixed-point steps of r^2 (3), the
+    # radial factor (6), both tangential terms (8 each), two updates (4)
+    undistort = 4 * (4 + 8 * (3 + 6 + 8 + 8 + 4))
+    canonical = 4                      # -s in ox and oy
+    # sx, sy (3 each), four differences, den (3), g and hh (3 and a
+    # safe_div of 2 each), a b d e (3 each), 0.5 / s, H's rows (7 each)
+    h_square = 3 + 3 + 4 + 3 + 2 * 5 + 4 * 3 + 1 + 3 * 7
+    # H / H22 (2 + 9), the normal's norm (5), d0 d1 c (3), m (2), the
+    # rotation to the normal (19), H' (9 x 5), A (2 + 4), A^T A (9), trace
+    # and det (4), disc and gamma (4 each), gamma's products (5), c1 and
+    # c2 (3 each, and c2's sign 1); each candidate's third column (9)
+    # and rotation back (9 x 5), the second's negations (2)
+    ippe = (11 + 5 + 3 + 2 + 19 + 45 + 6 + 9 + 4 + 8 + 5 + 7
+            + 2 * (9 + 45) + 2)
+    # the normal matrix's sums (8); a corner: |uv|^2 (4), R o (9), the
+    # right side (8); the 3x3 solve
+    translation = 8 + 4 * (4 + 9 + 10) + _spd_ops(3)
+    # a corner: projection and residual (17), the Jacobian's rows (10 +
+    # 9), J^T r (6 x 4), the lower triangle of J^T J (21 x 4)
+    gn_corner = 17 + 10 + 9 + 6 * 4 + 21 * 4
+    # then -J^T r (6), the solve, the angle and half (7), sin / th, cos
+    # and the quaternion (6), its matrix (39), the left product (45) and
+    # the translation (3)
+    gn_step = 4 * gn_corner + 6 + _spd_ops(6) + 7 + 6 + 39 + 45 + 3
+    # a corner: R o (9), depth (1), x and y (4), the squared error (8),
+    # the depth penalty (2); then the RMS (2) and the penalty's sum (2)
+    rms = 4 * (9 + 1 + 4 + 8 + 2) + 4
+    from_matrix = 2 + 8 + 5 + 9 + 8 + 4  # the trace's pivot: 2 fewer
+    to_rotvec = 1 + 3 + 5 + 1 + 2 + 2 + 3  # past the small angle: 1 fewer
+    out = 4                            # the mean focal, two errors
+    return (undistort + canonical + h_square + ippe
+            + 2 * translation + 2 * refine_iters * gn_step + 2 * rms
+            + from_matrix + to_rotvec + out)
+
+
+def _pnp_inputs(corners_true, mask_true, rng, frames: int):
+    """(frames, 64, 4, 2) f32 slot corners: the rendered clip's visible
+    corners with 0.5 px noise (the corners traffic's), its frames cycled
+    with fresh noise, empty slots zeroed as the front end pads them."""
+    import numpy as np
+    reps = -(-frames // len(corners_true))
+    c = np.concatenate([corners_true] * reps)[:frames]
+    m = np.concatenate([mask_true] * reps)[:frames]
+    c = c + rng.normal(scale=0.5, size=c.shape)
+    return np.where(m[..., None, None], c, 0.0).astype(np.float32), m
+
+
+def _pnp(corners_true, mask_true, cam, marker_size, rng, dev):
+    """The PnP kernel against its plain version on the card at the main
+    path's shapes: a corners request (128 frames x 64 slots) and a
+    32-frame chunk."""
+    import torch
+    from aruco_slam_tpu_torch.ops import pnp
+    cam_d = cam.to(device=dev)
+    worst = 0.0
+    shapes = []
+    for frames in (128, CHUNK):
+        c, m = _pnp_inputs(corners_true, mask_true, rng, frames)
+        c = torch.from_numpy(c).to(dev)
+        got = pnp.solve_square_pnp(cam_d, c, marker_size)
+        want = pnp.solve_square_pnp_plain(cam_d, c, marker_size)
+        nan_alike = all(torch.equal(g.isnan(), w.isnan())
+                        for g, w in zip(got, want))
+        err = max(float((g.nan_to_num() - w.nan_to_num()).abs().max())
+                  for g, w in zip(got, want))
+        worst = max(worst, err)
+        t = timings(lambda: pnp.solve_square_pnp(cam_d, c, marker_size),
+                    lambda: pnp.solve_square_pnp_plain(cam_d, c,
+                                                       marker_size),
+                    plain_reps=5)
+        n = c[..., 0, 0].numel()
+        b_ms, b_by = bound(n * pnp_ops(), n * PNP_BYTES, F32_PEAK)
+        log(f"[PnP] solve {tuple(c.shape)} ({int(m.sum())} markers in "
+            f"view): max |kernel - plain| {err:.3e} over every output "
+            f"(tol {PNP_TOL}), NaNs alike {nan_alike}; {_fmt_t(t)}, bound "
+            f"{b_ms:.5f} ms ({b_by})")
+        if not nan_alike or err > PNP_TOL:
+            raise AssertionError(f"PnP differs from its plain version at "
+                                 f"{tuple(c.shape)}: {err}, NaNs alike "
+                                 f"{nan_alike}")
+        shapes.append({"shape": list(c.shape), **t, "bound_ms": b_ms,
+                       "bound_by": b_by})
+    return {"name": "solve", "route": "cuda",
+            "source": "aruco_slam_tpu_torch/csrc/pnp_square.cu",
+            "replaces": None, "max_abs_err": worst,
+            **{k: shapes[0][k] for k in ("ms", "device_ms", "plain_ms",
+                                         "plain_device_ms", "bound_ms",
+                                         "bound_by")},
+            "library_ms": None, "shapes": shapes}
+
+
 def _capture_update_inputs(corners, mask, cam, marker_size,
                            rotations: bool = False, max_obs: int = 0):
     """The fused update's inputs at every frame of a short filter run
@@ -918,10 +1029,10 @@ def _b3(captured, captured_rot, captured_rot32, dev):
 def _wrappers():
     """Every kernel wrapper, each with its launch count."""
     from aruco_slam_tpu_torch.filters import cuda_mekf
-    from aruco_slam_tpu_torch.ops import cuda_cc, cuda_subpix
+    from aruco_slam_tpu_torch.ops import cuda_cc, cuda_pnp, cuda_subpix
     return (cuda_cc.flood_scan_labels, cuda_subpix.refine_corners,
             cuda_mekf.fused_update, cuda_cc.flood_labels,
-            cuda_subpix.refine_offsets)
+            cuda_subpix.refine_offsets, cuda_pnp.solve)
 
 
 def _reset_counts() -> None:
@@ -3378,7 +3489,8 @@ def main() -> int:
                                             max_obs=32)
     kernels += [_b3(captured, captured_rot, captured_rot32, dev),
                 _b4(rng, dev),
-                _b5(frames, corners, mask, rng, dev)]
+                _b5(frames, corners, mask, rng, dev),
+                _pnp(corners, mask, cam, scene.marker_size, rng, dev)]
     b3_bench = _b3_bench_shapes(dev, smi)
     _elapsed("the kernels' checks")
     kernels[2]["shapes"] += b3_bench
@@ -3388,12 +3500,12 @@ def main() -> int:
     # batched call (all views' chessboard corners)
     b5_cal = _b5_calibration(cviews, chess, np.random.default_rng(SEED + 1),
                              dev)
-    kernels[-1].update({k: b5_cal[-1][k] for k in (
+    kernels[4].update({k: b5_cal[-1][k] for k in (
         "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms",
         "bound_by")})
-    kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
-                                     *(c["max_abs_err"] for c in b5_cal))
-    kernels[-1]["shapes"] = [c["shape"] for c in b5_cal]
+    kernels[4]["max_abs_err"] = max(kernels[4]["max_abs_err"],
+                                    *(c["max_abs_err"] for c in b5_cal))
+    kernels[4]["shapes"] = [c["shape"] for c in b5_cal]
     phase_undistort(
         [cviews[0], frames[0]],
         [cam_mod.CameraModel.from_matrix(np.asarray(CALIB_K, np.float32),
