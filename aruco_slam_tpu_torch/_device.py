@@ -52,3 +52,9 @@ def request_stream(device: torch.device):
     if device not in _REQUEST_STREAMS:
         _REQUEST_STREAMS[device] = torch.cuda.Stream(device)
     return torch.cuda.stream(_REQUEST_STREAMS[device])
+
+
+def sync(device: torch.device) -> None:
+    """Wait for ``device``'s queued work (nothing on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

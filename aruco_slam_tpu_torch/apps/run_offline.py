@@ -35,20 +35,20 @@ processes that share a card (`dist.choose_backend`). Only process 0
 writes outputs.
 
 npz input may carry `images`, `corners` or pose-level `t_cl` bundles;
-video input (with ``--calib``) goes through run_slam's decode ring and
-front end; recycled slots (``--slot-max-age``) are epoch-split into
-fresh landmark columns. ``--checkpoint-every N --checkpoint PATH``
-saves the pass-1 ingest's (graph state, frames done) every N frames (the
-main process writes; `utils/checkpoint.py`, JAX's format), ``--resume
-PATH`` restarts the ingest from it on every process; ``--profile DIR``
-writes a torch.profiler trace of the front end, the ingest and the solve
-to DIR/trace.json. ``--viz-2d`` / ``--viz-3d`` (``--viz-3d-renderer``,
-``--viz-dir``, ``--export-video``) replay the smoothed poses and the
-final map through the viewers after the solve (pass 2,
-`apps/sinks.replay`); a viewer whose library is missing is refused
-before any input is read. ``--platform cuda`` is the default and raises
-when no card is present. Every flag of the JAX run_offline parses and
-runs, with its usage errors.
+video input (with ``--calib``) goes through the front end's decode ring
+(`apps/front_end.py`); recycled slots (``--slot-max-age``) are
+epoch-split into fresh landmark columns. ``--checkpoint-every N
+--checkpoint PATH`` saves the pass-1 ingest's (graph state, frames done)
+every N frames (the main process writes; `utils/checkpoint.py`, JAX's
+format), ``--resume PATH`` restarts the ingest from it on every process;
+``--profile DIR`` writes a torch.profiler trace of the front end, the
+ingest and the solve to DIR/trace.json. ``--viz-2d`` / ``--viz-3d``
+(``--viz-3d-renderer``, ``--viz-dir``, ``--export-video``) replay the
+smoothed poses and the final map through the viewers after the solve
+(pass 2, `apps/sinks.replay`); a viewer whose library is missing is
+refused before any input is read. ``--platform cuda`` is the default and
+raises when no card is present. Every flag of the JAX run_offline parses
+and runs, with its usage errors.
 """
 
 from __future__ import annotations
@@ -65,19 +65,18 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from aruco_slam_tpu_torch._device import resolve_device
+from aruco_slam_tpu_torch._device import resolve_device, sync
 from aruco_slam_tpu_torch.apps import sinks
+from aruco_slam_tpu_torch.apps.front_end import (
+    load_observations, load_video_observations)
 from aruco_slam_tpu_torch.apps.run_slam import (
-    _resolve_recycling, _sync, graph_config, load_observations,
-    load_video_observations)
-from aruco_slam_tpu_torch.bench import ate
+    graph_config, resolve_recycling, write_outputs)
 from aruco_slam_tpu_torch.config import SlamAppConfig
 from aruco_slam_tpu_torch.graph import (
     GraphConfig, GraphState, add_frame, batch_optimize, check_indices,
     init_graph, landmark_covariances, optimize_window, state_from_numpy,
     state_to_numpy)
-from aruco_slam_tpu_torch.io import (
-    NpzSource, TrajectoryWriter, is_video, save_map)
+from aruco_slam_tpu_torch.io import NpzSource, is_video
 from aruco_slam_tpu_torch.parallel import dist as pdist
 from aruco_slam_tpu_torch.parallel.sharded_ba import (
     sharded_batch_optimize, sharded_fleet_optimize, stack_graphs)
@@ -179,7 +178,7 @@ def _load_all(cfg: SlamAppConfig, inputs: list[str], calib,
         else:
             src = NpzSource(path)
             obs = load_observations(src, c, device)
-        seqs.append((src, _resolve_recycling(obs)))
+        seqs.append((src, resolve_recycling(obs)))
     return seqs
 
 
@@ -226,38 +225,27 @@ def _seq_path(path: str, i: int, n: int) -> str:
 def _write_outputs(args, cfg: SlamAppConfig, gcfg: GraphConfig,
                    state: GraphState, times, slot_ids, src,
                    seq_i: int = 0, n_seq: int = 1, obs=None):
-    """Trajectory, pass-2 viewer replay (``obs`` = (t_cl, q_cl, mask,
-    cam), with --viz-2d / --viz-3d), map and ATE of one solved sequence:
-    (cam_traj, ids, ate)."""
+    """Pass-2 viewer replay (``obs`` = (t_cl, q_cl, mask, cam), with
+    --viz-2d / --viz-3d), then the trajectory, map and ATE of one solved
+    sequence (`run_slam.write_outputs`): (cam_traj, ids, ate)."""
     t = len(times)
     cam_traj = torch.cat([state.pose_t, state.pose_q], 1)[:t].cpu().numpy()
-    traj_file = _seq_path(cfg.trajectory_file, seq_i, n_seq)
-    map_file = _seq_path(cfg.map_file, seq_i, n_seq)
-    with TrajectoryWriter(traj_file) as w:
-        for i in range(t):
-            w.write(float(times[i]), cam_traj[i])
     active = state.lm_active.cpu().numpy()
     if cfg.viz_2d or cfg.viz_3d:
         t_cl, q_cl, mask, cam = obs
         sinks.replay(sinks.build_viewers(cfg, cam, src), times, cam_traj,
                      state.lm.cpu().numpy(), active, t_cl, q_cl, mask,
                      slot_ids=slot_ids)
-    slots = np.where(active)[0]
-    # id->slot table inputs record TRUE marker ids in the map file
-    ids = slot_ids[slots] if slot_ids is not None else slots
     unc = torch.diagonal(landmark_covariances(gcfg, state), dim1=-2,
                          dim2=-1).cpu().numpy()
     lm_out = state.lm.cpu().numpy()
     if args.ba_rotations:
         # 7-column records [xyz, quat wxyz]
         lm_out = np.concatenate([lm_out, state.lm_q.cpu().numpy()], 1)
-    save_map(map_file, ids, lm_out[slots], unc[slots])
-    print(f"wrote {traj_file} ({t} poses), {map_file} ({len(ids)} "
-          "landmarks)")
-    err = None
-    if src is not None and src.has("gt_cam_t"):
-        err = float(ate.ate_rmse(cam_traj[:, :3], src["gt_cam_t"]))
-        print(f"ATE vs ground truth: {err:.4f} m")
+    ids, err = write_outputs(
+        "wrote", _seq_path(cfg.trajectory_file, seq_i, n_seq),
+        _seq_path(cfg.map_file, seq_i, n_seq), times, cam_traj, active,
+        slot_ids, lm_out, unc, src)
     return cam_traj, ids, err
 
 
@@ -366,22 +354,22 @@ def _run_fleet(args, cfg: SlamAppConfig, inputs: list[str], is_main: bool,
     seqs = _load_all(cfg, inputs, args.calib, device)
     seconds["front_end"] = time.perf_counter() - t0
     # common capacities so the problems stack into one fleet
-    max_t = max(len(o[0]) for _, o in seqs)
-    max_l = max(o[1].shape[1] for _, o in seqs)
-    max_f = max(int(o[3].sum()) for _, o in seqs) + 8
-    cam0 = seqs[0][1][4]
+    max_t = max(len(o.times) for _, o in seqs)
+    max_l = max(o.t_cl.shape[1] for _, o in seqs)
+    max_f = max(int(o.mask.sum()) for _, o in seqs) + 8
+    cam0 = seqs[0][1].cam
     gcfg = graph_config(cfg, max_t + 2, max_l, max_f, cam0,
                         args.ba_rotations,
                         torch.float64 if args.f64 else torch.float32)
     for _, o in seqs[1:]:
-        if abs(float(o[4].fx) - float(cam0.fx)) > 0.01 * float(cam0.fx):
+        if abs(float(o.cam.fx) - float(cam0.fx)) > 0.01 * float(cam0.fx):
             print("warning: fleet sequences have different focal "
                   "lengths; using the first camera's for the "
                   "pixel-noise scaling")
             break
 
     def ingest(o):
-        return _ingest(gcfg, cfg, o[1], o[3], o[2], args.ba_rotations,
+        return _ingest(gcfg, cfg, o.t_cl, o.mask, o.q_cl, args.ba_rotations,
                        device)
 
     t0 = time.perf_counter()
@@ -399,7 +387,7 @@ def _run_fleet(args, cfg: SlamAppConfig, inputs: list[str], is_main: bool,
                   for i in range(len(seqs))]
     else:
         states = [ingest(o) for _, o in seqs]
-    _sync(device)
+    sync(device)
     seconds["ingest"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     out, costs = sharded_fleet_optimize(gcfg, stack_graphs(states), mesh,
@@ -413,7 +401,7 @@ def _run_fleet(args, cfg: SlamAppConfig, inputs: list[str], is_main: bool,
           f"{seconds['solve']:.2f}s (ingest {seconds['ingest']:.2f}s)")
     results = []
     for i, (src, o) in enumerate(seqs):
-        times, slot_ids = o[0], o[6]
+        times, slot_ids = o.times, o.slot_ids
         seq = GraphState(*(x[i] for x in out))
         cam_traj, ids, err = _write_outputs(args, cfg, gcfg, seq, times,
                                             slot_ids, src, seq_i=i,
@@ -480,9 +468,9 @@ def main(argv=None):
         else:
             src = NpzSource(cfg.input)
             obs = load_observations(src, cfg, device, shard=shard)
-        times, t_cl, q_cl, mask, cam, _amb, slot_ids = \
-            _resolve_recycling(obs)
-        _sync(device)
+        times, t_cl, q_cl, mask, cam, _, slot_ids, _, _ = \
+            resolve_recycling(obs)
+        sync(device)
         seconds["front_end"] = time.perf_counter() - t0
 
         t = len(times)
@@ -494,7 +482,7 @@ def main(argv=None):
                         device, checkpoint_every=args.checkpoint_every,
                         checkpoint=args.checkpoint, resume=args.resume,
                         is_main=is_main)
-        _sync(device)
+        sync(device)
         seconds["ingest"] = time.perf_counter() - t0
         t1 = time.perf_counter()
         state, cost = _solve(gcfg, state, cfg.batch_iters,

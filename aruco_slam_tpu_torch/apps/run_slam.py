@@ -5,16 +5,15 @@ Counterpart of aruco_slam_tpu/apps/run_slam.py:
     python -m aruco_slam_tpu_torch.apps.run_slam --input seq.npz \
         [--platform cuda|cpu] [--filter mekf|mekf_rotations|factorgraph]
 
-frames -> `ops.detect.detect_candidates_batch` (robust sweep, chunks of
-32) -> `ops.detect.assign_sequence_lru` (the id->slot scan) ->
-`ops.pnp.solve_square_pnp` -> the backend -> TUM trajectory +
-map files in the JAX run_slam's formats. The MEKF backends run
-`filters.mekf.mekf_scan`; ``--filter factorgraph`` runs the windowed
-factor graph frame by frame (`graph.add_frame`, `optimize_window` and,
-past ``--pose-budget``, `marginalize_poses`; ``--ba-rotations`` for
-6-dof landmarks), tuned by ``--window``, ``--meas-sigma-t``,
-``--odom-sigma-*`` and ``--huber-delta``, with recycled slots split
-into per-epoch landmark columns (`epoch_remap`).
+frames -> the front end (`apps/front_end.py`: the robust sweep in chunks
+of 32, the id->slot scan, batched PnP and its gate) -> the backend ->
+TUM trajectory + map files in the JAX run_slam's formats. The MEKF
+backends run `filters.mekf.mekf_scan`; ``--filter factorgraph`` runs the
+windowed factor graph frame by frame (`graph.add_frame`,
+`optimize_window` and, past ``--pose-budget``, `marginalize_poses`;
+``--ba-rotations`` for 6-dof landmarks), tuned by ``--window``,
+``--meas-sigma-t``, ``--odom-sigma-*`` and ``--huber-delta``, with
+recycled slots split into per-epoch landmark columns (`epoch_remap`).
 npz input may carry `images`, `corners` or pose-level `t_cl` bundles;
 video input is decoded by the port's own `io.VideoSource` on a
 background thread (`io.PrefetchingFrameSource`), so decode overlaps
@@ -24,10 +23,9 @@ detection.
 detection on every frame (`ops.detect.streaming_step`);
 ``--slot-max-age N`` recycles stale id->slot table slots and resets
 their landmarks; ``--load-map`` seeds the filter with a saved map;
-``--input a.npz,b.npz,...`` serves S streams at once (detection over the
-S·T frames of a chunk as one batch, or with ``--track-every K`` frame
-by frame over all S streams, staggered in ``--rescue-cohorts G``
-cohorts; the S filters in one batched step; per-stream output files).
+``--input a.npz,b.npz,...`` serves S streams at once (the front end's
+chunk step over all S, ``--rescue-cohorts G`` staggering a tracked
+fleet; the S filters in one batched step; per-stream output files).
 ``--checkpoint-every N --checkpoint PATH`` writes (state, frames done,
 trajectory so far) every N frames (the MEKF scan runs in N-frame
 chunks), ``--resume PATH`` restarts from such a file (JAX's format:
@@ -39,8 +37,7 @@ spans (`utils.profiling.StageTimer`: ``input.load``, ``front_end.*``,
 also counts the rows of each frame's fused update (B3):
 ``filter.update_rows``, those that carry an observation, and
 ``filter.update_row_slots``, all M of them (`_count_update_rows`), and
-the markers of each PnP call, ``front_end.pnp_markers``, and those the
-CUDA kernel solved, ``front_end.pnp_kernel_markers`` (`_solve_pnp`);
+the front end the markers of each PnP call, ``front_end.pnp_markers``;
 ``RunResult.counters`` returns them. The fleet writes no checkpoint (as
 in JAX).
 
@@ -69,7 +66,6 @@ viewer flags print the JAX run_slam's note and the fleet is served.
 from __future__ import annotations
 
 import argparse
-import itertools
 import time
 import uuid
 from pathlib import Path
@@ -78,11 +74,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from aruco_slam_tpu_torch._device import request_stream, resolve_device
+from aruco_slam_tpu_torch._device import (
+    request_stream, resolve_device, sync)
 from aruco_slam_tpu_torch.apps import sinks
+from aruco_slam_tpu_torch.apps.front_end import (
+    CHUNK, ChunkStep, Observations, camera, load_camera, load_observations,
+    load_video_observations)
 from aruco_slam_tpu_torch.bench import ate
 from aruco_slam_tpu_torch.config import SlamAppConfig
-from aruco_slam_tpu_torch.core import camera as cam_mod
 from aruco_slam_tpu_torch.filters import mekf as mekf_mod
 from aruco_slam_tpu_torch.filters import (
     FrameObservations, MekfConfig, MekfState, init_state, mekf_scan,
@@ -91,10 +90,7 @@ from aruco_slam_tpu_torch.graph import (
     GraphConfig, add_frame, check_indices, init_graph, landmark_covariances,
     marginalize_poses, optimize_window)
 from aruco_slam_tpu_torch.io import (
-    NpzSource, PrefetchingFrameSource, TrajectoryWriter, is_video, load_map,
-    save_map, video_frames)
-from aruco_slam_tpu_torch.ops import cuda_pnp, detect, pnp
-from aruco_slam_tpu_torch.parallel import dist as pdist
+    NpzSource, TrajectoryWriter, is_video, load_map, save_map, video_frames)
 from aruco_slam_tpu_torch.parallel import multi_slam
 from aruco_slam_tpu_torch.utils.checkpoint import (
     load_checkpoint, save_checkpoint)
@@ -113,313 +109,6 @@ class RunResult(NamedTuple):
     ate: float | None         # vs the input's gt_cam_t, when present
     seconds: dict             # wall time per stage
     counters: dict            # the request's counters (StageTimer.count)
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-def _camera(k, d, device) -> cam_mod.CameraModel:
-    return cam_mod.CameraModel.from_matrix(
-        np.asarray(k, np.float32), np.asarray(d, np.float32),
-        device=device)
-
-
-def _detector_config(cfg: SlamAppConfig) -> detect.DetectorConfig:
-    return detect.with_preset(
-        detect.DetectorConfig(capacity=cfg.capacity,
-                              dict_name=cfg.dict_name,
-                              slot_max_age=cfg.slot_max_age),
-        cfg.detector)
-
-
-def _observations_from_frames(frame_iter, cam, cfg: SlamAppConfig,
-                              device: torch.device,
-                              timer: StageTimer | None = None,
-                              chunk: int = 32):
-    """Image front end over a (timestamp, gray) iterator: detection +
-    batched PnP in fixed-size chunks, slots claimed first-seen through
-    the id->slot table (recycled stalest-first with ``--slot-max-age``).
-    Full detection runs each chunk as one batch (the tail chunk
-    zero-padded). With ``cfg.track_every`` K the chunk runs frame by
-    frame through `detect.streaming_step` (full sweep on 2 of every K
-    frames, validated tracking in between), whose carry (corners, mask,
-    velocity, table, frame index) crosses the chunks; its tail chunk is
-    not padded, since a zero frame would change neither the table nor
-    any real frame's output. ``timer`` takes the spans
-    ``front_end.upload``, ``.sweep``, ``.slots`` and ``.pnp`` of each
-    chunk (the tracked chunk's frame loop is its ``.slots``) and the
-    final ``.readback``. Returns the loader tuple (times, t_cl, q_cl,
-    mask, cam, ambiguity, slot_ids, reset, ids_seq) as numpy arrays;
-    ``reset`` and ``ids_seq`` (T, C) only with ``--slot-max-age``."""
-    ke = cfg.track_every
-    if ke and cfg.slot_max_age:
-        raise ValueError("--slot-max-age with --track-every is not "
-                         "supported yet: the streaming carry does not "
-                         "thread the LRU table")
-    timer = timer or StageTimer()
-    dcfg = _detector_config(cfg)
-    times, buf, outs = [], [], []
-    table = detect.slot_table_init(dcfg.capacity, device)
-    seen = torch.zeros(dcfg.capacity, dtype=torch.int32, device=device)
-    fidx = 0
-    step = detect.streaming_step(dcfg, ke, mapped=True) if ke else None
-    carry = detect.streaming_init(dcfg, mapped=True, device=device)
-
-    def flush():
-        nonlocal table, seen, fidx, carry
-        n = len(buf)
-        if not n:
-            return
-        with timer.stage("front_end.upload"):
-            if n < chunk and not ke:
-                buf.extend([np.zeros_like(buf[0])] * (chunk - n))
-            ims = torch.from_numpy(np.stack(buf)).to(device)
-        if ke:
-            with timer.stage("front_end.slots"):
-                per_frame = []
-                for im in ims:
-                    carry, out = step(carry, im)
-                    per_frame.append(out)
-                det_c, det_m = (torch.stack(x) for x in zip(*per_frame))
-            table = carry[3]
-            reset = ids_f = None
-            dropped = torch.zeros(n, dtype=torch.int32, device=device)
-        else:
-            with timer.stage("front_end.sweep"):
-                cands = detect.detect_candidates_batch(ims, dcfg)
-            with timer.stage("front_end.slots"):
-                det_c, det_m, reset, ids_f, table, seen, dropped = \
-                    detect.assign_sequence_lru(dcfg, table, seen, fidx,
-                                               *cands)
-        fidx += n
-        with timer.stage("front_end.pnp"):
-            outs.append(_pnp_chunk(timer, cam, cfg, det_c, det_m, reset,
-                                   ids_f, dropped, n))
-        buf.clear()
-
-    for ts, gray in frame_iter:
-        times.append(ts)
-        buf.append(gray)
-        if len(buf) == chunk:
-            flush()
-    flush()
-    if not times:
-        raise ValueError("no decodable frames")
-    with timer.stage("front_end.readback"):
-        return _loader_tuple(times, outs, cam, table, cfg, dcfg)
-
-
-def _observations_from_frames_sharded(frame_iter, cam, cfg: SlamAppConfig,
-                                      device: torch.device, pid: int,
-                                      nproc: int, chunk: int = 32,
-                                      total: int | None = None,
-                                      timer: StageTimer | None = None):
-    """Distributed image front end (run_offline --distributed), the JAX
-    run_slam's: chunk c's candidate pipeline (threshold, labeling,
-    harvest, subpixel, decode: B1 and B2) runs only on process c % nproc;
-    the candidate arrays are all-gathered on the host (the chunk count
-    padded to a multiple of the processes, the chunks put back in order)
-    and every process replicates the sequential id->slot scan and the
-    batched PnP, in the single-process front end's chunks and shapes, so
-    the observations are bit-identical to `_observations_from_frames`.
-    With ``total`` frames known, the chunk shrinks so that every process
-    owns one; a process that still owns none raises. ``timer`` takes
-    each chunk's ``front_end.pnp`` span and counters."""
-    timer = timer or StageTimer()
-    if cfg.track_every:
-        raise ValueError("--distributed ingest shards full detection; "
-                         "tracked streaming (--track-every) is "
-                         "sequential — drop one of the two flags")
-    dcfg = _detector_config(cfg)
-    scan_chunk = chunk  # the single-process front end's chunk
-    if total is not None:
-        chunk = max(1, min(chunk, -(-total // nproc)))
-    times, buf, mine = [], [], []
-    n_chunks = 0
-
-    def flush():
-        nonlocal n_chunks
-        n = len(buf)
-        if not n:
-            return
-        if n < chunk:
-            buf.extend([np.zeros_like(buf[0])] * (chunk - n))
-        if n_chunks % nproc == pid:
-            cands = detect.detect_candidates_batch(
-                torch.from_numpy(np.stack(buf)).to(device), dcfg)
-            mine.append([x.cpu().numpy() for x in cands])
-        n_chunks += 1
-        buf.clear()
-
-    for ts, gray in frame_iter:
-        times.append(ts)
-        buf.append(gray)
-        if len(buf) == chunk:
-            flush()
-    flush()
-    if not times:
-        raise ValueError("no decodable frames")
-    if not mine:
-        raise ValueError(
-            f"process {pid} owns no chunks ({n_chunks} chunks over "
-            f"{nproc} processes): use fewer processes")
-    mmax = -(-n_chunks // nproc)
-    local = [np.stack([m[j] for m in mine]
-                      + [np.zeros_like(mine[0][j])] * (mmax - len(mine)))
-             for j in range(len(mine[0]))]
-    ordered = [np.concatenate([g[c % nproc, c // nproc]
-                               for c in range(n_chunks)])
-               for g in pdist.all_gather_host(local)]
-
-    tlen = len(times)
-    table = detect.slot_table_init(dcfg.capacity, device)
-    seen = torch.zeros(dcfg.capacity, dtype=torch.int32, device=device)
-    outs = []
-    for f0 in range(0, tlen, scan_chunk):
-        n = min(scan_chunk, tlen - f0)
-        det_c, det_m, reset, ids_f, table, seen, dropped = \
-            detect.assign_sequence_lru(
-                dcfg, table, seen, f0,
-                *(torch.from_numpy(a[f0:f0 + n]).to(device)
-                  for a in ordered))
-        if n < scan_chunk:  # as the single front end's padded tail
-            det_c = torch.cat([det_c, det_c.new_zeros(
-                (scan_chunk - n, *det_c.shape[1:]))])
-            det_m = torch.cat([det_m, det_m.new_zeros(
-                (scan_chunk - n, *det_m.shape[1:]))])
-        with timer.stage("front_end.pnp"):
-            outs.append(_pnp_chunk(timer, cam, cfg, det_c, det_m, reset,
-                                   ids_f, dropped, n))
-    return _loader_tuple(times, outs, cam, table, cfg, dcfg, warn=pid == 0)
-
-
-def _solve_pnp(timer: StageTimer, cam, corners, marker_size: float):
-    """`pnp.solve_square_pnp` with the front end's two counters:
-    ``front_end.pnp_markers``, the markers solved, and
-    ``front_end.pnp_kernel_markers``, those of them the CUDA kernel
-    solved (`cuda_pnp.solve`'s launches before and after). Both come
-    from shapes the host holds: no sync."""
-    before = cuda_pnp.solve.launches
-    res = pnp.solve_square_pnp(cam, corners, marker_size)
-    n = corners[..., 0, 0].numel()
-    timer.count("front_end.pnp_markers", n)
-    timer.count("front_end.pnp_kernel_markers",
-                n * (cuda_pnp.solve.launches - before))
-    return res
-
-
-def _pnp_chunk(timer: StageTimer, cam, cfg: SlamAppConfig, det_c, det_m,
-               reset, ids_f, dropped, n: int):
-    """A chunk's slot corners through batched PnP (`_solve_pnp`): (t_cl,
-    q_cl, mask, ambiguity, reset, ids_f, dropped, n real frames)."""
-    res = _solve_pnp(timer, cam, det_c, cfg.marker_size)
-    mask = det_m & (res.err < cfg.max_reproj_px)
-    amb = res.err / torch.clamp(res.err2, min=1e-9)
-    return res.t_cl, res.q_cl, mask, amb, reset, ids_f, dropped, n
-
-
-def _loader_tuple(times, outs, cam, table, cfg: SlamAppConfig,
-                  dcfg: detect.DetectorConfig, warn: bool = True):
-    """The chunks' outputs -> the loader tuple, as numpy arrays; warns
-    when the id->slot table saturated."""
-    cat = lambda i: np.concatenate(
-        [o[i][:o[-1]].cpu().numpy() for o in outs])
-    dropped_ids = int(sum(int(o[6][:o[-1]].sum()) for o in outs))
-    if dropped_ids and warn:
-        print(f"WARNING: {dropped_ids} marker sightings found NO free "
-              f"slot (id->slot table saturated at capacity "
-              f"{dcfg.capacity}); raise --capacity or set "
-              "--slot-max-age N to recycle stale slots")
-    recycle = bool(cfg.slot_max_age)
-    return (np.asarray(times), cat(0), cat(1), cat(2), cam, cat(3),
-            table.cpu().numpy(), cat(4) if recycle else None,
-            cat(5) if recycle else None)
-
-
-def _prefetched_video(path: str):
-    """A video's (timestamp, gray) frames, decoded ahead on a background
-    thread into a ring of 16 (the JAX run_slam's video path); the first
-    frame, decoded here, gives the ring its frame shape."""
-    frames = video_frames(path)
-    first = next(frames, None)
-    if first is None:
-        raise ValueError(f"{path}: no decodable frames")
-    return itertools.chain([first], PrefetchingFrameSource(
-        frames, first[1].shape))
-
-
-def load_camera(cfg: SlamAppConfig, calib_dir=None, device=None
-                ) -> cam_mod.CameraModel:
-    """Camera from saved calibration artifacts (``calib_dir``'s
-    camera_matrix.npy + dist_coeffs.npy, the reference's files) or the
-    config fallback, as f32 on ``device``."""
-    k, d = cfg.camera_matrix, cfg.dist_coeffs
-    if calib_dir:
-        k = np.load(Path(calib_dir) / "camera_matrix.npy")
-        d = np.load(Path(calib_dir) / "dist_coeffs.npy")
-    return _camera(k, d, device)
-
-
-def load_video_observations(cfg: SlamAppConfig, calib_dir,
-                            device: torch.device, shard=None,
-                            timer: StageTimer | None = None):
-    """A video's loader tuple (see `load_observations`): the camera from
-    `load_camera`, frames decoded ahead on a thread into the front end.
-    ``shard=(pid, nproc)`` shards the candidate pipeline over processes
-    (`_observations_from_frames_sharded`)."""
-    cam = load_camera(cfg, calib_dir, device)
-    frames = _prefetched_video(cfg.input)
-    if shard and shard[1] > 1:
-        return _observations_from_frames_sharded(frames, cam, cfg, device,
-                                                 *shard, timer=timer)
-    return _observations_from_frames(frames, cam, cfg, device, timer)
-
-
-def load_observations(src: NpzSource, cfg: SlamAppConfig,
-                      device: torch.device, shard=None,
-                      timer: StageTimer | None = None):
-    """Return (times, t_cl (T,C,3), q_cl (T,C,4), mask (T,C), cam,
-    ambiguity, slot_ids, reset, ids_seq); ``slot_ids`` maps slot ->
-    marker id for image input (None when the slot index is the id).
-    ``shard=(pid, nproc)`` shards image input's candidate pipeline over
-    processes (`_observations_from_frames_sharded`). ``timer`` takes the
-    front end's spans (corner input: ``front_end.upload``, ``.pnp``,
-    ``.readback``)."""
-    timer = timer or StageTimer()
-    k = src["camera_matrix"] if src.has("camera_matrix") \
-        else cfg.camera_matrix
-    d = src["dist_coeffs"] if src.has("dist_coeffs") else cfg.dist_coeffs
-    cam = _camera(k, d, device)
-    if src.has("marker_size"):
-        cfg.marker_size = float(src["marker_size"])
-    if src.has("images"):
-        imgs = src["images"]
-        if shard and shard[1] > 1:
-            return _observations_from_frames_sharded(
-                zip(src.times, imgs), cam, cfg, device, *shard,
-                total=len(imgs), timer=timer)
-        return _observations_from_frames(zip(src.times, imgs), cam, cfg,
-                                         device, timer)
-    if src.has("corners"):
-        with timer.stage("front_end.upload"):
-            corners = torch.as_tensor(src["corners"], dtype=torch.float32,
-                                      device=device)
-            corner_mask = torch.as_tensor(src["corner_mask"], device=device)
-        with timer.stage("front_end.pnp"):
-            res = _solve_pnp(timer, cam, corners, cfg.marker_size)
-            mask = corner_mask & (res.err < cfg.max_reproj_px)
-            amb = res.err / torch.clamp(res.err2, min=1e-9)
-        with timer.stage("front_end.readback"):
-            return (src.times, res.t_cl.cpu().numpy(),
-                    res.q_cl.cpu().numpy(), mask.cpu().numpy(), cam,
-                    amb.cpu().numpy(), None, None, None)
-    if src.has("t_cl"):
-        return (src.times, src["t_cl"], src["q_cl"], src["mask"], cam,
-                None, None, None, None)
-    raise ValueError(
-        f"{src.path}: no 'images', 'corners', or 't_cl' observations")
 
 
 def _auto_max_obs(cfg: SlamAppConfig, mask, capacity: int) -> int:
@@ -644,20 +333,20 @@ def epoch_remap(t_cl, q_cl, mask, reset, ids_seq):
     return t_cl2, q_cl2, mask2, col_ids
 
 
-def _resolve_recycling(obs):
-    """A loader 9-tuple -> the 7-tuple the graph consumes (times, t_cl,
-    q_cl, mask, cam, ambiguity, slot_ids): recycled slots epoch-split
-    into fresh landmark columns (nothing changes when none recycled)."""
-    times, t_cl, q_cl, mask, cam, amb, slot_ids, reset, ids_seq = obs
-    if reset is not None and np.asarray(reset).any():
-        n0 = t_cl.shape[1]
-        t_cl, q_cl, mask, slot_ids = epoch_remap(
-            np.asarray(t_cl), np.asarray(q_cl), np.asarray(mask),
-            np.asarray(reset), np.asarray(ids_seq))
-        amb = None  # the per-slot layout no longer matches
-        print(f"slot recycling: split {n0} detector slots into "
-              f"{t_cl.shape[1]} per-epoch landmark columns")
-    return times, t_cl, q_cl, mask, cam, amb, slot_ids
+def resolve_recycling(obs: Observations) -> Observations:
+    """The observations as the graph consumes them, ``reset`` and
+    ``ids_seq`` None: recycled slots epoch-split into fresh landmark
+    columns, ``slot_ids`` mapping each to its marker id and no
+    ambiguity (the per-slot layout no longer matches); nothing else
+    changes when none recycled."""
+    if obs.reset is not None and np.asarray(obs.reset).any():
+        t_cl, q_cl, mask, slot_ids = epoch_remap(*map(np.asarray, (
+            obs.t_cl, obs.q_cl, obs.mask, obs.reset, obs.ids_seq)))
+        print(f"slot recycling: split {obs.t_cl.shape[1]} detector slots "
+              f"into {t_cl.shape[1]} per-epoch landmark columns")
+        obs = obs._replace(t_cl=t_cl, q_cl=q_cl, mask=mask, ambiguity=None,
+                           slot_ids=slot_ids)
+    return obs._replace(reset=None, ids_seq=None)
 
 
 def graph_config(cfg: SlamAppConfig, max_poses: int, max_landmarks: int,
@@ -787,18 +476,14 @@ def _load_stream_frames(path: str, cfg: SlamAppConfig):
 
 
 def run_multi_stream(cfg: SlamAppConfig, inputs: list[str], calib_dir,
-                     device: torch.device, chunk: int = 32,
+                     device: torch.device, chunk: int = CHUNK,
                      timer: StageTimer | None = None) -> list[RunResult]:
     """Online multi-camera serving, as the JAX run_multi_stream: S
-    streams (truncated to the shortest) through the image->pose pipeline
-    together. With full detection each chunk's S·T frames run the
-    candidate sweep as one batch, and slot assignment then steps the S
-    per-stream id->slot tables together. With ``cfg.track_every`` K the
-    chunk's frames go to the device once and step frame by frame through
-    `detect.streaming_step(streams=S)` (one schedule for the fleet, or
-    ``cfg.rescue_cohorts`` staggered cohorts), whose carry crosses the
-    chunks; its tail chunk is not padded. PnP runs on all S·T frames and
-    the S filters step together (`parallel.multi_slam.batched_mekf_scan`,
+    streams (truncated to the shortest) through the front end's chunk
+    step together (`front_end.ChunkStep(streams=S)`: a chunk's S·T
+    frames one sweep batch and S tables scanned together, or tracked
+    frame by frame), the observations kept on the device, and the S
+    filters stepped together (`parallel.multi_slam.batched_mekf_scan`,
     one fused-update launch per frame). As in JAX, with a stream mesh
     (`multi_slam.stream_mesh`: every card of the process) of ndev > 1
     entries that divide S, the filter scan alone is sharded over them and
@@ -822,13 +507,12 @@ def run_multi_stream(cfg: SlamAppConfig, inputs: list[str], calib_dir,
         times = loaded[0][0][:tlen]
         calib = next((c for _, _, c, _ in loaded if c is not None), None)
         cam = load_camera(cfg, calib_dir, device) if calib is None \
-            else _camera(*calib, device)
+            else camera(*calib, device)
         for _, _, _, src in loaded:  # npz marker size, as one stream's path
             if src is not None and src.has("marker_size"):
                 cfg.marker_size = float(src["marker_size"])
                 break
         frames = np.stack([f[:tlen] for _, f, _, _ in loaded])  # (S,T,H,W)
-        dcfg = _detector_config(cfg)
     seconds["load"] = time.perf_counter() - t0
 
     mesh = multi_slam.stream_mesh(device)
@@ -840,59 +524,20 @@ def run_multi_stream(cfg: SlamAppConfig, inputs: list[str], calib_dir,
                                if d.type == "cuda"))
     for card in cards:
         torch.cuda.reset_peak_memory_stats(card)
-    ke = cfg.track_every
-    if ke:
-        step = detect.streaming_step(dcfg, ke, streams=s, mapped=True,
-                                     rescue_cohorts=cfg.rescue_cohorts)
-        carry = detect.streaming_init(dcfg, streams=s, mapped=True,
-                                      device=device)
-    else:
-        tables = detect.slot_table_init(dcfg.capacity, device, streams=s)
-        seen = torch.zeros((s, dcfg.capacity), dtype=torch.int32,
-                           device=device)
-    outs = []
+    step = ChunkStep(cam, cfg, device, timer, chunk, streams=s)
+    carry, outs = step.init(), []
     for c0 in range(0, tlen, chunk):
-        ims = frames[:, c0:c0 + chunk]
-        n = ims.shape[1]
-        with timer.stage("front_end.upload"):
-            if n < chunk and not ke:  # zero-pad the tail, as one stream
-                ims = np.concatenate(
-                    [ims, np.zeros((s, chunk - n) + ims.shape[2:],
-                                   ims.dtype)], axis=1)
-            ims = torch.from_numpy(np.ascontiguousarray(ims)).to(device)
-        if ke:
-            # one upload a chunk, made time-major on the device: frame j
-            # of every stream is the contiguous (S, H, W) block ims[j]
-            with timer.stage("front_end.slots"):
-                per_frame = []
-                for im in ims.transpose(0, 1).contiguous():
-                    carry, out = step(carry, im)
-                    per_frame.append(out)
-                det_c, det_m = (torch.stack(x, 1) for x in zip(*per_frame))
-        else:
-            with timer.stage("front_end.sweep"):
-                cands = detect.detect_candidates_batch(ims, dcfg)
-            with timer.stage("front_end.slots"):
-                det_c, det_m, _, _, tables, seen, _ = \
-                    detect.assign_sequence_lru(dcfg, tables, seen, c0,
-                                               *cands)
-        with timer.stage("front_end.pnp"):
-            res = _solve_pnp(timer, cam, det_c, cfg.marker_size)
-            mask = det_m & (res.err < cfg.max_reproj_px)
-            amb = res.err / torch.clamp(res.err2, min=1e-9)
-            outs.append([x[:, :n] for x in (res.t_cl, res.q_cl, mask, amb)])
-    t_cl, q_cl, mask, amb = (torch.cat([o[i] for o in outs], 1)
-                             for i in range(4))
-    if ke:
-        tables = carry[3]
+        carry, out = step(carry, frames[:, c0:c0 + chunk])
+        outs.append(out)
+    t_cl, q_cl, mask, amb = (torch.cat(x, 1) for x in list(zip(*outs))[:4])
     with timer.stage("front_end.readback"):
         mask_np = mask.cpu().numpy()
-    _sync(device)
+    sync(device)
     seconds["front_end"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    max_obs = _auto_max_obs(cfg, mask_np, dcfg.capacity)
-    fcfg = _mekf_config(cfg, dcfg.capacity, max_obs,
+    max_obs = _auto_max_obs(cfg, mask_np, cfg.capacity)
+    fcfg = _mekf_config(cfg, cfg.capacity, max_obs,
                         cfg.filter == "mekf_rotations", cam)
     states = multi_slam.stack_states([init_state(fcfg, device=device)] * s)
     if mesh is not None:
@@ -905,7 +550,7 @@ def run_multi_stream(cfg: SlamAppConfig, inputs: list[str], calib_dir,
     with timer.stage("filter.readback"):
         states = MekfState(*(x.to(device) for x in states))
         trajs = trajs.cpu().numpy()
-    _sync(device)
+    sync(device)
     seconds["filter"] = time.perf_counter() - t0
     peak = ""
     if cards:
@@ -921,32 +566,43 @@ def run_multi_stream(cfg: SlamAppConfig, inputs: list[str], calib_dir,
         unc = mekf_mod.landmark_uncertainties(fcfg, states).cpu().numpy()
         active = states.active.cpu().numpy()
         lm = states.lm.cpu().numpy()[..., :3]
-        table_np = tables.cpu().numpy()
+        tables = carry.table.cpu().numpy()
     _warn_dropped(dropped, fcfg.max_obs)
     counters = {}  # the request's, as ``seconds``: filled by `main`
     with timer.stage("output.write"):
         results = []
         for i in range(s):
             tf = _stream_path(cfg.trajectory_file, i)
-            with TrajectoryWriter(tf) as w:
-                for ts, pose in zip(times, trajs[i]):
-                    w.write(float(ts), pose)
-            slots = np.where(active[i])[0]
-            ids = table_np[i][slots]
             mf = _stream_path(cfg.map_file, i)
-            save_map(mf, ids, lm[i][slots], unc[i][:, :3][slots])
-            line = f"stream {i}: {tf} ({tlen} poses), {mf} " \
-                   f"({len(ids)} landmarks)"
-            err = None
-            src = loaded[i][3]
-            if src is not None and src.has("gt_cam_t"):
-                err = float(ate.ate_rmse(trajs[i][:, :3],
-                                         src["gt_cam_t"][:tlen]))
-                line += f", ATE {err:.4f} m"
-            print(line)
+            ids, err = write_outputs(f"stream {i}:", tf, mf, times, trajs[i],
+                                      active[i], tables[i], lm[i],
+                                      unc[i][:, :3], loaded[i][3])
             results.append(RunResult(tf, mf, trajs[i], mask_np[i], ids, err,
                                      seconds, counters))
         return results
+
+
+def write_outputs(head: str, traj_file: str, map_file: str, times,
+                   cam_traj, active, slot_ids, lm, unc, src):
+    """One stream's TUM trajectory, map file (its active slots by marker
+    id: ``slot_ids``, None when the slot is the id) and ATE against the
+    npz ``src``'s ``gt_cam_t``, in one printed line: (ids, ATE or None).
+    """
+    with TrajectoryWriter(traj_file) as w:
+        for ts, pose in zip(times, cam_traj):
+            w.write(float(ts), pose)
+    slots = np.where(active)[0]
+    ids = slots if slot_ids is None else slot_ids[slots]
+    save_map(map_file, ids, lm[slots], unc[slots])
+    line = f"{head} {traj_file} ({len(times)} poses), {map_file} " \
+           f"({len(ids)} landmarks)"
+    err = None
+    if src is not None and src.has("gt_cam_t"):
+        err = float(ate.ate_rmse(cam_traj[:, :3],
+                                 src["gt_cam_t"][:len(times)]))
+        line += f", ATE {err:.4f} m"
+    print(line)
+    return ids, err
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -1063,10 +719,10 @@ def _run_single(cfg: SlamAppConfig, args, device: torch.device,
             src = NpzSource(cfg.input)
         seconds["load"] = time.perf_counter() - t0
         obs = load_observations(src, cfg, device, timer=timer)
-    _sync(device)
+    sync(device)
     seconds["front_end"] = time.perf_counter() - t0
 
-    viewers = sinks.build_viewers(cfg, obs[4], src, display=args.display,
+    viewers = sinks.build_viewers(cfg, obs.cam, src, display=args.display,
                                   timer=timer)
     t0 = time.perf_counter()
     kw = dict(ckpt_every=args.checkpoint_every, ckpt_path=args.checkpoint,
@@ -1074,8 +730,8 @@ def _run_single(cfg: SlamAppConfig, args, device: torch.device,
     if cfg.filter == "factorgraph":
         # the graph keys landmarks by column and has no reset: recycled
         # slots become fresh columns (the MEKF consumes `reset` itself)
-        times, t_cl, q_cl, mask, cam, amb, slot_ids = \
-            _resolve_recycling(obs)
+        times, t_cl, q_cl, mask, cam, _, slot_ids, _, _ = \
+            resolve_recycling(obs)
         out = run_factorgraph(cfg, times, t_cl, q_cl, mask, cam, device,
                               with_rotations=args.ba_rotations,
                               slot_ids=slot_ids, **kw)
@@ -1086,7 +742,7 @@ def _run_single(cfg: SlamAppConfig, args, device: torch.device,
             with_rotations=cfg.filter == "mekf_rotations",
             load_map_file=args.load_map, ambiguity=amb, slot_ids=slot_ids,
             reset=reset, **kw)
-    _sync(device)
+    sync(device)
     seconds["filter"] = time.perf_counter() - t0
     return seconds, src, viewers, (times, mask, slot_ids, *out)
 
@@ -1173,21 +829,9 @@ def _serve(argv, timer: StageTimer) -> RunResult | list[RunResult]:
               f"{stage}: {seconds['filter']:.3f}s ({device})")
 
         with timer.stage("output.write"):
-            with TrajectoryWriter(cfg.trajectory_file) as w:
-                for ts, pose in zip(times, cam_traj):
-                    w.write(float(ts), pose)
-            slots = np.where(active)[0]
-            # under the id->slot table the map file records TRUE marker
-            # ids (slot index == id for corner-/pose-level inputs)
-            ids = slot_ids[slots] if slot_ids is not None else slots
-            save_map(cfg.map_file, ids, lm[slots], unc[slots])
-            print(f"wrote {cfg.trajectory_file} ({tt} poses), "
-                  f"{cfg.map_file} ({len(ids)} landmarks)")
-            err = None
-            if src is not None and src.has("gt_cam_t"):
-                err = float(ate.ate_rmse(cam_traj[:, :3],
-                                         src["gt_cam_t"][:tt]))
-                print(f"ATE vs ground truth: {err:.4f} m")
+            ids, err = write_outputs(
+                "wrote", cfg.trajectory_file, cfg.map_file, times,
+                cam_traj, active, slot_ids, lm, unc, src)
     _wrote_trace(args.profile)
     return RunResult(cfg.trajectory_file, cfg.map_file, cam_traj,
                      np.asarray(mask), np.asarray(ids), err, seconds, {})

@@ -240,25 +240,22 @@ def _ingest_once(bundle, shard, device: torch.device, reps: int = 3
     (process id, process count) runs the distributed front end."""
     import time
 
-    from aruco_slam_tpu_torch.apps.run_slam import (
-        _observations_from_frames, _observations_from_frames_sharded)
+    from aruco_slam_tpu_torch.apps.front_end import (
+        camera, observations_from_frames, observations_from_frames_sharded)
     from aruco_slam_tpu_torch.config import SlamAppConfig
-    from aruco_slam_tpu_torch.core import camera as cam_mod
 
     cfg = SlamAppConfig(input="", capacity=16)
     cfg.marker_size = float(bundle["marker_size"])
-    cam = cam_mod.CameraModel.from_matrix(
-        np.asarray(bundle["camera_matrix"], np.float32),
-        np.asarray(bundle["dist_coeffs"], np.float32), device=device)
+    cam = camera(bundle["camera_matrix"], bundle["dist_coeffs"], device)
     imgs, times = bundle["images"], bundle["times"]
 
     def go():
         # both return numpy arrays: the device's work is done
         if shard:
-            return _observations_from_frames_sharded(
+            return observations_from_frames_sharded(
                 zip(times, imgs), cam, cfg, device, shard[0], shard[1],
                 total=len(imgs))
-        return _observations_from_frames(zip(times, imgs), cam, cfg, device)
+        return observations_from_frames(zip(times, imgs), cam, cfg, device)
 
     go()
     best = float("inf")

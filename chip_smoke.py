@@ -294,7 +294,7 @@ SHARD_TOL = 1e-6      # m
 SHARD_LOCAL = (2, 4)
 DIST_RANKS = 2        # the [dist] phase's processes (Gloo on the one card)
 # their front end's chunk: the main path's CHUNK frames spread so that
-# each rank owns one chunk (run_slam._observations_from_frames_sharded)
+# each rank owns one chunk (front_end.observations_from_frames_sharded)
 DIST_CHUNK = -(-CHUNK // DIST_RANKS)
 PROFILE_ITERS = 5     # LM iterations traced for events and busy share
 # calibration: tests/test_calibrate.py's camera, views and tolerances
@@ -1766,14 +1766,14 @@ def phase_prefetch(npz: Path, main_res, dev):
     run's accepted observations."""
     import numpy as np
     import torch
-    from aruco_slam_tpu_torch.apps import run_slam
+    from aruco_slam_tpu_torch.apps import front_end
     from aruco_slam_tpu_torch.config import SlamAppConfig
     from aruco_slam_tpu_torch.io import NpzSource, PrefetchingFrameSource
     src = NpzSource(npz)
     images = src["images"]
     cfg = SlamAppConfig(input=str(npz),
                         marker_size=float(src["marker_size"]))
-    cam = run_slam._camera(src["camera_matrix"], src["dist_coeffs"], dev)
+    cam = front_end.camera(src["camera_matrix"], src["dist_coeffs"], dev)
 
     def decoded():
         for ts, im in zip(src.times, images):
@@ -1785,7 +1785,7 @@ def phase_prefetch(npz: Path, main_res, dev):
                             decoded(), images.shape[1:], capacity=16))):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        obs = run_slam._observations_from_frames(frames(), cam, cfg, dev)
+        obs = front_end.observations_from_frames(frames(), cam, cfg, dev)
         torch.cuda.synchronize()
         out[tag] = (obs, time.perf_counter() - t0)
     (direct, t_direct), (ring, t_ring) = out["direct"], out["ring"]

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from aruco_slam_tpu.bench import synthetic as jsyn
-from aruco_slam_tpu_torch.apps import run_slam
+from aruco_slam_tpu_torch.apps import front_end
 from aruco_slam_tpu_torch.bench import detect_profile, e2e
 from aruco_slam_tpu_torch.bench import pipeline as tpipe
 from aruco_slam_tpu_torch.config import SlamAppConfig
@@ -47,7 +47,7 @@ def cached(tmp_path, monkeypatch):
 def test_e2e_row_detections_and_trajectory(cached):
     """`bench.e2e` on 4 rendered 1080p frames in chunks of 2: JAX's row;
     its detections, gated by reprojection, are what run_slam's front end
-    (`run_slam._observations_from_frames`, its chunk cut to the 4 frames)
+    (`front_end.observations_from_frames`, its chunk cut to the 4 frames)
     accepts on the same frames: the same ids a frame, their marker
     positions within 1e-5 m; its trajectory (the chunked detection and
     `make_pipeline`) is the serving route's,
@@ -70,7 +70,7 @@ def test_e2e_row_detections_and_trajectory(cached):
 
     cfg = SlamAppConfig(input="", marker_size=scene.marker_size)
     _, t_cl, _, mask, _, _, slot_ids, _, _ = \
-        run_slam._observations_from_frames(
+        front_end.observations_from_frames(
             zip(np.arange(4) / 30.0, frames), cam, cfg,
             torch.device("cpu"), chunk=4)
     for i in range(4):

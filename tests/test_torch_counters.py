@@ -3,10 +3,10 @@ count of the fused update's rows, ``filter.update_rows`` and
 ``filter.update_row_slots``, against a hand count from the accepted
 observations it returns, on the CPU (point and rotation landmarks, a
 chunked scan, the viewers' per-frame loop and a two-stream fleet); its
-count of the markers PnP solved, ``front_end.pnp_markers``, and of those
-the CUDA kernel solved, ``front_end.pnp_kernel_markers`` (none on the
-CPU), on every front end; and on a card, that counting reads nothing
-back and launches nothing."""
+count of the markers PnP solved, ``front_end.pnp_markers``, on every
+front end, with no launch of the PnP kernel on the CPU
+(`cuda_pnp.solve.launches` before and after); and on a card, that
+counting reads nothing back and launches nothing."""
 
 import functools
 
@@ -14,13 +14,15 @@ import numpy as np
 import pytest
 import torch
 
+from aruco_slam_tpu_torch.apps import front_end
 from aruco_slam_tpu_torch.apps import make_synthetic as tsyn
 from aruco_slam_tpu_torch.apps import run_slam as trun
 from aruco_slam_tpu_torch.io import save_npz
+from aruco_slam_tpu_torch.ops import cuda_pnp
 from aruco_slam_tpu_torch.utils import profiling
 
 ROWS, SLOTS = "filter.update_rows", "filter.update_row_slots"
-PNP, PNP_KERNEL = "front_end.pnp_markers", "front_end.pnp_kernel_markers"
+PNP = "front_end.pnp_markers"
 # the 1080p camera at half scale, for 960x540 frames
 HALF_K = np.array([[707.45, 0.0, 483.5], [0.0, 707.45, 272.15],
                    [0.0, 0.0, 1.0]])
@@ -91,15 +93,16 @@ def test_run_slam_counts_the_update_rows(bundles, tmp_path, filt, meas_dims,
 
 def test_viewer_loop_counts_every_frame(bundles, tmp_path, monkeypatch):
     """The viewers' per-frame steps count as the scan does."""
-    real = trun._observations_from_frames
-    monkeypatch.setattr(trun, "_observations_from_frames",
+    real = front_end.observations_from_frames
+    monkeypatch.setattr(front_end, "observations_from_frames",
                         lambda *a: real(*a, chunk=4))
+    launches = cuda_pnp.solve.launches
     res = trun.main(_argv(str(bundles["images"]), tmp_path, "--filter",
                           "mekf_rotations", "--capacity", "16", "--viz-2d",
                           "--viz-dir", str(tmp_path / "viz")))
     want = hand_count([res.obs_mask], 16, 16, 7)
-    assert res.counters == {ROWS: want[0], SLOTS: want[1],
-                            PNP: 4 * 16, PNP_KERNEL: 0}
+    assert res.counters == {ROWS: want[0], SLOTS: want[1], PNP: 4 * 16}
+    assert cuda_pnp.solve.launches == launches
     assert want == (7 * int(res.obs_mask.sum()), 4 * 16 * 7)
 
 
@@ -112,12 +115,14 @@ def test_fleet_counts_its_streams_together(bundles, tmp_path, monkeypatch,
     monkeypatch.setattr(trun, "run_multi_stream", functools.partial(
         trun.run_multi_stream, chunk=4))
     inp = ",".join([str(bundles["images"])] * 2)
+    launches = cuda_pnp.solve.launches
     res = trun.main(_argv(inp, tmp_path, "--filter", filt, "--capacity",
                           "16"))
     assert len(res) == 2 and res[0].counters is res[1].counters
     want = hand_count([r.obs_mask for r in res], 16, 16, meas_dims)
     assert res[0].counters == {ROWS: want[0], SLOTS: want[1],
-                               PNP: 2 * 4 * 16, PNP_KERNEL: 0}
+                               PNP: 2 * 4 * 16}
+    assert cuda_pnp.solve.launches == launches
     assert want[0] > 0
 
 
@@ -128,15 +133,16 @@ def test_run_slam_counts_the_pnp_markers(bundles, tmp_path, monkeypatch,
                                          inp, chunk, markers):
     """One stream from corners (one PnP call a request) and from images
     (one a chunk, the tail chunk padded to the chunk's frames, which PnP
-    solves too): every slot of every call counts, none by the kernel on
-    the CPU."""
+    solves too): every slot of every call counts, and the kernel
+    launches nothing on the CPU."""
     if chunk:
-        real = trun._observations_from_frames
-        monkeypatch.setattr(trun, "_observations_from_frames",
+        real = front_end.observations_from_frames
+        monkeypatch.setattr(front_end, "observations_from_frames",
                             lambda *a: real(*a, chunk=chunk))
+    launches = cuda_pnp.solve.launches
     res = trun.main(_argv(str(bundles[inp]), tmp_path, "--capacity", "16"))
-    assert {k: res.counters[k] for k in (PNP, PNP_KERNEL)} == {
-        PNP: markers, PNP_KERNEL: 0}
+    assert res.counters[PNP] == markers
+    assert cuda_pnp.solve.launches == launches
 
 
 def test_sharded_ingest_counts_the_pnp_markers(bundles):
@@ -147,15 +153,16 @@ def test_sharded_ingest_counts_the_pnp_markers(bundles):
     src = NpzSource(str(bundles["images"]))
     cfg = SlamAppConfig(input=str(bundles["images"]), capacity=16)
     cpu = torch.device("cpu")
-    cam = trun._camera(src["camera_matrix"], src["dist_coeffs"], cpu)
+    cam = front_end.camera(src["camera_matrix"], src["dist_coeffs"], cpu)
     timers = [profiling.StageTimer(), profiling.StageTimer()]
-    trun._observations_from_frames_sharded(
+    launches = cuda_pnp.solve.launches
+    front_end.observations_from_frames_sharded(
         zip(src.times, src["images"]), cam, cfg, cpu, 0, 1, chunk=3,
         timer=timers[0])
-    trun._observations_from_frames(zip(src.times, src["images"]), cam, cfg,
-                                   cpu, timers[1], chunk=3)
-    assert timers[0].counters == timers[1].counters == {
-        PNP: 6 * 16, PNP_KERNEL: 0}
+    front_end.observations_from_frames(
+        zip(src.times, src["images"]), cam, cfg, cpu, timers[1], chunk=3)
+    assert timers[0].counters == timers[1].counters == {PNP: 6 * 16}
+    assert cuda_pnp.solve.launches == launches
     assert timers[0].totals["front_end.pnp"] > 0
 
 

@@ -14,6 +14,7 @@ from aruco_slam_tpu.apps import run_offline as joff
 from aruco_slam_tpu.apps import run_slam as jrun
 from aruco_slam_tpu.io import load_map
 from aruco_slam_tpu.io.trajectory import read_trajectory
+from aruco_slam_tpu_torch.apps import front_end
 from aruco_slam_tpu_torch.apps import run_offline as toff
 from aruco_slam_tpu_torch.apps import run_slam as trun
 from aruco_slam_tpu_torch.bench import render, synthetic
@@ -71,8 +72,8 @@ def test_epoch_remap_matches_jax(two_cohorts):
     from aruco_slam_tpu_torch.config import SlamAppConfig
     from aruco_slam_tpu_torch.io import NpzSource
     cfg = SlamAppConfig(input=str(two_cohorts), capacity=5, slot_max_age=1)
-    obs = trun.load_observations(NpzSource(two_cohorts), cfg,
-                                 torch.device("cpu"))
+    obs = front_end.load_observations(NpzSource(two_cohorts), cfg,
+                                      torch.device("cpu"))
     _, t_cl, q_cl, mask, _, _, _, reset, ids_seq = obs
     assert reset.any()
     want = jrun.epoch_remap(t_cl, q_cl, mask, reset, ids_seq)

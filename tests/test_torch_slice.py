@@ -27,6 +27,7 @@ from aruco_slam_tpu.core import camera as jcam
 from aruco_slam_tpu.io import load_map
 from aruco_slam_tpu.io.sources import save_npz
 from aruco_slam_tpu.io.trajectory import read_trajectory
+from aruco_slam_tpu_torch.apps import front_end
 from aruco_slam_tpu_torch.apps import run_slam as trun
 
 torch.set_num_threads(2)
@@ -124,9 +125,9 @@ def test_run_slam_track_every_chunks(video_rate, tmp_path, monkeypatch):
     """The streaming carry crosses chunk boundaries: chunks of 5 frames
     give the same trajectory as one chunk."""
     out = []
-    real = trun._observations_from_frames
+    real = front_end.observations_from_frames
     for chunk in (32, 5):
-        monkeypatch.setattr(trun, "_observations_from_frames",
+        monkeypatch.setattr(front_end, "observations_from_frames",
                             lambda *a, _c=chunk: real(*a, chunk=_c))
         res = trun.main(["--input", str(video_rate), "--platform", "cpu",
                          "--track-every", "4",
@@ -256,12 +257,12 @@ def test_run_slam_video_through_the_ring(video_rate, tmp_path, monkeypatch):
                           "--trajectory", str(tmp_path / f"{tag}.txt"),
                           "--map", str(tmp_path / f"{tag}_map.txt")])
 
-    monkeypatch.setattr(trun, "PrefetchingFrameSource", Recorded)
+    monkeypatch.setattr(front_end, "PrefetchingFrameSource", Recorded)
     ring = run("ring")
     assert len(rings) == 1
     rings[0].thread.join(timeout=10)
     assert not rings[0].thread.is_alive()
-    monkeypatch.setattr(trun, "PrefetchingFrameSource",
+    monkeypatch.setattr(front_end, "PrefetchingFrameSource",
                         lambda frames, shape: frames)
     sync = run("sync")
     assert ring.cam_traj.shape == (len(seq["images"]), 7)

@@ -8,6 +8,7 @@ import json
 import pytest
 import torch
 
+from aruco_slam_tpu_torch.apps import front_end
 from aruco_slam_tpu_torch.apps import make_synthetic as tsyn
 from aruco_slam_tpu_torch.apps import run_slam as trun
 from aruco_slam_tpu_torch.io import save_npz
@@ -51,8 +52,8 @@ def bundles(tmp_path_factory):
 def chunk4(monkeypatch):
     """The image front ends' chunk cut to the bundle's 4 frames, so no
     chunk is padded to 32."""
-    real = trun._observations_from_frames
-    monkeypatch.setattr(trun, "_observations_from_frames",
+    real = front_end.observations_from_frames
+    monkeypatch.setattr(front_end, "observations_from_frames",
                         lambda *a: real(*a, chunk=4))
     monkeypatch.setattr(trun, "run_multi_stream", functools.partial(
         trun.run_multi_stream, chunk=4))
