@@ -10,12 +10,19 @@ kernel on a card) and its gate, `accept`. run_slam's single stream
 (`observations_from_frames`), its fleet (`run_slam.run_multi_stream`)
 and the distributed ingest (`observations_from_frames_sharded`, which
 sweeps only its own chunks) all step it. The loaders return
-`Observations`. Spans: ``front_end.upload``, ``.sweep``, ``.slots``,
-``.pnp``, ``.readback``; counter ``front_end.pnp_markers``.
+`Observations`. An npz's images reach the single stream's chunk step
+from a reader thread (`io.ChunkReader`) that inflates chunk k+1 into a
+ring of reused chunk slots, pinned on a card, while the step runs chunk
+k. Spans: ``front_end.upload``, ``.sweep``, ``.slots``, ``.pnp``,
+``.readback``, and ``input.wait``, the step's wait on the reader;
+counters ``front_end.pnp_markers``, ``input.chunks`` (chunks the reader
+handed over) and ``input.chunks_waited`` (those the step waited for).
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import itertools
 from pathlib import Path
 from typing import NamedTuple
@@ -26,7 +33,7 @@ import torch
 from aruco_slam_tpu_torch.config import SlamAppConfig
 from aruco_slam_tpu_torch.core import camera as cam_mod
 from aruco_slam_tpu_torch.io import (
-    NpzSource, PrefetchingFrameSource, video_frames)
+    NpzSource, PrefetchingFrameSource, RingChunk, video_frames)
 from aruco_slam_tpu_torch.ops import detect, pnp
 from aruco_slam_tpu_torch.parallel import dist as pdist
 from aruco_slam_tpu_torch.utils.profiling import StageTimer
@@ -102,11 +109,12 @@ def _pad(a: np.ndarray, length: int, axis: int = 0) -> np.ndarray:
 
 class ChunkStep:
     """``step(carry, frames) -> (carry, Chunk)`` over one stream's T
-    frames ((T, H, W) or T (H, W) frames) or, with ``streams`` S, a
-    fleet's (S, T, H, W) chunk; ``init()`` is the first carry. Full
-    detection zero-pads a tail chunk to ``chunk`` frames (a zero frame
-    has no candidate, so no real frame's output changes), uploads it,
-    sweeps it as one batch and scans the slots (`slots`). Tracked, the
+    frames ((T, H, W) or T (H, W) frames, or an `io.RingChunk`) or, with
+    ``streams`` S, a fleet's (S, T, H, W) chunk; ``init()`` is the first
+    carry. Full detection zero-pads a tail chunk to ``chunk`` frames (a
+    zero frame has no candidate, so no real frame's output changes; a
+    ring slot comes padded), uploads it, sweeps it as one batch and
+    scans the slots (`slots`). Tracked, the
     chunk steps frame by frame through `detect.streaming_step` (a fleet
     time-major, on one schedule or ``cfg.rescue_cohorts`` cohorts)
     under ``front_end.slots``. Then PnP and the gate."""
@@ -136,11 +144,7 @@ class ChunkStep:
     def __call__(self, carry: Carry, frames) -> tuple[Carry, Chunk]:
         ax = self.axis
         with self.timer.stage("front_end.upload"):
-            ims = np.ascontiguousarray(frames)
-            n = ims.shape[ax]
-            if not self.track:
-                ims = _pad(ims, self.chunk, ax)
-            ims = torch.from_numpy(ims).to(self.device)
+            ims, n = self._upload(frames)
         if not self.track:
             with self.timer.stage("front_end.sweep"):
                 cands = detect.detect_candidates_batch(ims, self.dcfg)
@@ -155,6 +159,28 @@ class ChunkStep:
             det_c, det_m = (torch.stack(x, ax) for x in zip(*per_frame))
         carry = Carry(stream[3], carry.seen, stream, carry.frame + n)
         return carry, self._chunk(det_c, det_m, None, None, None, n)
+
+    def _upload(self, frames) -> tuple[torch.Tensor, int]:
+        """(the chunk on the device, its real frames). A ring slot goes
+        as it is, padded, or its first n frames when tracked: on a card
+        a non-blocking copy from pinned memory on the current stream,
+        after which the slot goes back with an event the reader waits
+        for before it refills it (on the CPU the consumer hands it back
+        once the step is done, since the step reads the slot itself)."""
+        if isinstance(frames, RingChunk):
+            n = frames.n
+            ims = (frames.frames[:n] if self.track else frames.frames).to(
+                self.device, non_blocking=True)
+            if ims.is_cuda:
+                copied = torch.cuda.Event()
+                copied.record()
+                frames.release(copied)
+            return ims, n
+        ims = np.ascontiguousarray(frames)
+        n = ims.shape[self.axis]
+        if not self.track:
+            ims = _pad(ims, self.chunk, self.axis)
+        return torch.from_numpy(ims).to(self.device), n
 
     def slots(self, carry: Carry, cands, n: int) -> tuple[Carry, Chunk]:
         """The id->slot scan over a chunk's candidates
@@ -181,6 +207,46 @@ def _batches(frame_iter, n: int):
     it = iter(frame_iter)
     while batch := list(itertools.islice(it, n)):
         yield tuple(zip(*batch))
+
+
+def _waited(reader, timer: StageTimer):
+    """(timestamps, `RingChunk`) of each chunk of ``reader``, the wait
+    for it under ``input.wait``, counted in ``input.chunks`` and, where
+    the reader had not finished it, ``input.chunks_waited``; each slot
+    goes back to the reader when the step is done with it."""
+    it = iter(reader)
+    while True:
+        waits = reader.waits
+        with timer.stage("input.wait"):
+            chunk = next(it, None)
+        if chunk is None:
+            return
+        timer.count("input.chunks", 1)
+        timer.count("input.chunks_waited", reader.waits - waits)
+        yield chunk.times, chunk
+        chunk.release()
+
+
+@contextlib.contextmanager
+def _chunked(frames, n: int, device: torch.device, timer: StageTimer):
+    """(timestamps, frames) of every ``n`` consecutive frames: of a
+    (timestamp, gray) iterator, or of an `NpzSource`'s images, streamed
+    by a reader thread into the slots of a ring made for the request
+    (pinned on a card, where PyTorch's caching host allocator serves the
+    next request's ring from the freed one) where the source allows it
+    (`NpzSource.stream`), else the whole array; the reader stops when
+    the block ends."""
+    pinned = functools.partial(torch.empty, dtype=torch.uint8,
+                               pin_memory=device.type == "cuda")
+    reader = frames.stream(n, pinned) if isinstance(frames, NpzSource) \
+        else None
+    if reader is not None:
+        with contextlib.closing(reader):
+            yield _waited(reader, timer)
+    elif isinstance(frames, NpzSource):
+        yield _batches(zip(frames.times, frames["images"]), n)
+    else:
+        yield _batches(frames, n)
 
 
 def _observations(timer: StageTimer, times, chunks, cam, table,
@@ -212,19 +278,21 @@ def observations_from_frames(frame_iter, cam, cfg: SlamAppConfig,
                              device: torch.device,
                              timer: StageTimer | None = None,
                              chunk: int = CHUNK) -> Observations:
-    """The image front end over a (timestamp, gray) iterator, ``chunk``
-    frames at a time through `ChunkStep`; ``reset`` and ``ids_seq`` only
-    with ``--slot-max-age``."""
+    """The image front end over a (timestamp, gray) iterator or an
+    `NpzSource`'s images (streamed: `_chunked`), ``chunk`` frames at a
+    time through `ChunkStep`; ``reset`` and ``ids_seq`` only with
+    ``--slot-max-age``."""
     if cfg.track_every and cfg.slot_max_age:
         raise ValueError("--slot-max-age with --track-every is not "
                          "supported yet: the streaming carry does not "
                          "thread the LRU table")
     step = ChunkStep(cam, cfg, device, timer, chunk)
     carry, times, chunks = step.init(), [], []
-    for ts, frames in _batches(frame_iter, chunk):
-        times += ts
-        carry, out = step(carry, frames)
-        chunks.append(out)
+    with _chunked(frame_iter, chunk, device, step.timer) as batches:
+        for ts, frames in batches:
+            times += ts
+            carry, out = step(carry, frames)
+            chunks.append(out)
     if not times:
         raise ValueError("no decodable frames")
     return _observations(step.timer, times, chunks, cam, carry.table, cfg)
@@ -331,11 +399,16 @@ def load_video_observations(cfg: SlamAppConfig, calib_dir,
 
 def load_observations(src: NpzSource, cfg: SlamAppConfig,
                       device: torch.device, shard=None,
-                      timer: StageTimer | None = None) -> Observations:
+                      timer: StageTimer | None = None,
+                      display: bool = False) -> Observations:
     """An npz's `Observations`, from its ``images`` (the image front
     end; ``shard=(pid, nproc)`` shards its sweep over processes), its
     ``corners`` (PnP and the gate alone) or its pose-level ``t_cl``; the
-    camera and marker size from the file where it has them."""
+    camera and marker size from the file where it has them. One stream's
+    images stream from a reader thread into the chunk step, unless the
+    2D viewer (``cfg.viz_2d`` or ``display``) reads them again after the
+    front end: then, as for a sharded sweep, the whole array is inflated
+    once."""
     timer = timer or StageTimer()
     k = src["camera_matrix"] if src.has("camera_matrix") \
         else cfg.camera_matrix
@@ -344,6 +417,8 @@ def load_observations(src: NpzSource, cfg: SlamAppConfig,
     if src.has("marker_size"):
         cfg.marker_size = float(src["marker_size"])
     if src.has("images"):
+        if not ((shard and shard[1] > 1) or cfg.viz_2d or display):
+            return observations_from_frames(src, cam, cfg, device, timer)
         imgs = src["images"]
         return _from_frames(zip(src.times, imgs), cam, cfg, device, shard,
                             timer, total=len(imgs))

@@ -718,7 +718,8 @@ def _run_single(cfg: SlamAppConfig, args, device: torch.device,
         with timer.stage("input.load"):
             src = NpzSource(cfg.input)
         seconds["load"] = time.perf_counter() - t0
-        obs = load_observations(src, cfg, device, timer=timer)
+        obs = load_observations(src, cfg, device, timer=timer,
+                                display=args.display)
     sync(device)
     seconds["front_end"] = time.perf_counter() - t0
 

@@ -9,7 +9,10 @@ numpy grayscale+resize in place of the native host library; both give
 the same bytes (integer BT.601 weights, floored), which
 tests/test_torch_core.py checks on the imageio route with and without
 that library. `PrefetchingFrameSource` decodes ahead on a background
-thread into a bounded queue, where the JAX package feeds a native ring.
+thread into a bounded queue, where the JAX package feeds a native ring;
+`ChunkReader`, on the same background reader (`_Reader`), inflates an
+npz's frames a chunk at a time into the caller's ring of reused chunk
+slots, which `NpzSource.stream` hands out.
 `write_png_gray` and `write_png_rgb` write 8-bit grayscale and RGB PNGs
 with the standard library alone (the calibration previews and the
 viewers' frames, so that they need no image library);
@@ -18,9 +21,13 @@ viewers' frames, so that they need no image library);
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import io
 import queue
 import struct
 import threading
+import zipfile
 import zlib
 from pathlib import Path
 from typing import NamedTuple
@@ -111,30 +118,35 @@ class _Failed(NamedTuple):
 _END = object()
 
 
-class PrefetchingFrameSource:
-    """Decode ahead: a background thread drains ``frame_iter`` of
-    (timestamp, gray) pairs into a queue of at most ``capacity`` frames,
-    and iterating yields them in order: the timestamp as a float (f64,
-    exact), the frame as a uint8 copy of shape ``frame_shape``.
+class _Reader:
+    """The background reader of this module: a thread runs `_items` (a
+    generator) into a queue of at most ``capacity`` items, and iterating
+    yields them in order.
 
-    An exception in the decode thread is raised again in the consumer
-    when it reaches that point of the stream, so a truncated video is
-    an error, not a shorter run. The thread starts with the iteration,
-    so a source that is never iterated decodes nothing. Ending the
-    iteration early (a ``break``, an exception, or `close`) stops the
-    thread: a producer waiting on a full queue sees the stop within
-    ~0.05 s, one in the middle of a decode after it, and then closes
-    ``frame_iter``."""
+    An exception in the thread is raised again in the consumer when it
+    reaches that point of the stream, so a truncated input is an error,
+    not a shorter run. The thread starts with the iteration, so a reader
+    that is never iterated reads nothing. Ending the iteration early (a
+    ``break``, an exception, or `close`) stops the thread: a producer
+    waiting on a full queue sees the stop within ~0.05 s, one in the
+    middle of an item after it. The thread then closes `_items` and
+    runs `_release` (`close` runs it for a reader never iterated).
+    ``waits`` counts the items the consumer asked for before they were
+    ready."""
 
     _POLL_S = 0.05
 
-    def __init__(self, frame_iter, frame_shape, capacity: int = 16) -> None:
-        self.shape = tuple(frame_shape)
-        self._frames = frame_iter
+    def __init__(self, capacity: int) -> None:
         self._queue: queue.Queue = queue.Queue(maxsize=capacity)
         self._stop = threading.Event()
-        self.thread = threading.Thread(target=self._produce,
-                                       args=(frame_iter,), daemon=True)
+        self.waits = 0
+        self.thread = threading.Thread(target=self._produce, daemon=True)
+
+    def _items(self):
+        raise NotImplementedError
+
+    def _release(self) -> None:
+        """Close what the reader owns (once its thread is done)."""
 
     def _put(self, item) -> bool:
         while not self._stop.is_set():
@@ -145,25 +157,41 @@ class PrefetchingFrameSource:
                 pass
         return False
 
-    def _produce(self, frame_iter) -> None:
-        end = _END
+    def _get(self, q: queue.Queue):
+        """The next item of ``q`` (on the thread), or None once stopped."""
+        while not self._stop.is_set():
+            try:
+                return q.get(timeout=self._POLL_S)
+            except queue.Empty:
+                pass
+        return None
+
+    def _produce(self) -> None:
+        end, items = _END, self._items()
         try:
-            for ts, frame in frame_iter:
-                gray = np.array(frame, np.uint8).reshape(self.shape)
-                if not self._put((float(ts), gray)):
+            for item in items:
+                if not self._put(item):
                     return
         except Exception as e:  # handed to the consumer, which raises it
             end = _Failed(e)
         finally:
             self._put(end)
-            _close(frame_iter)
+            items.close()
+            self._release()
 
     def __iter__(self):
         if self._stop.is_set():
             return
         self.thread.start()
         try:
-            while (item := self._queue.get()) is not _END:
+            while True:
+                try:
+                    item = self._queue.get_nowait()
+                except queue.Empty:
+                    item = self._queue.get()
+                    self.waits += item is not _END
+                if item is _END:
+                    return
                 if isinstance(item, _Failed):
                     raise item.error
                 yield item
@@ -171,12 +199,32 @@ class PrefetchingFrameSource:
             self.close()
 
     def close(self) -> None:
-        """Stop the decode thread (it ends on its own within ~0.05 s, or
-        after the decode it is in); a source never iterated closes
-        ``frame_iter`` here."""
+        """Stop the thread (it ends on its own within ~0.05 s, or after
+        the item it is in); a reader never iterated releases here."""
         self._stop.set()
         if self.thread.ident is None:
-            _close(self._frames)
+            self._release()
+
+
+class PrefetchingFrameSource(_Reader):
+    """Decode ahead: a background thread drains ``frame_iter`` of
+    (timestamp, gray) pairs into a queue of at most ``capacity`` frames,
+    and iterating yields them in order: the timestamp as a float (f64,
+    exact), the frame as a uint8 copy of shape ``frame_shape``. Stops,
+    errors and early ends as `_Reader`'s; ``frame_iter`` is closed when
+    the reader ends."""
+
+    def __init__(self, frame_iter, frame_shape, capacity: int = 16) -> None:
+        super().__init__(capacity)
+        self.shape = tuple(frame_shape)
+        self._frames = frame_iter
+
+    def _items(self):
+        for ts, frame in self._frames:
+            yield float(ts), np.array(frame, np.uint8).reshape(self.shape)
+
+    def _release(self) -> None:
+        _close(self._frames)
 
 
 def _close(frame_iter) -> None:
@@ -185,15 +233,264 @@ def _close(frame_iter) -> None:
         close()
 
 
+def _npy_header(f) -> tuple:
+    """(shape, dtype, fortran_order) of the npy stream ``f``, left at
+    the array's first byte."""
+    version = np.lib.format.read_magic(f)
+    read = np.lib.format.read_array_header_1_0 if version[0] == 1 \
+        else np.lib.format.read_array_header_2_0
+    shape, fortran, dtype = read(f)
+    return shape, dtype, fortran
+
+
+class _Lazy(NamedTuple):
+    """An npz member read lazily: its npy header, the header's length,
+    and how the zip stores it."""
+
+    shape: tuple
+    dtype: np.dtype
+    fortran: bool
+    offset: int          # bytes of the npy header before the array
+    compress_type: int   # zipfile.ZIP_STORED, ZIP_DEFLATED, ...
+
+
+class _ZStream(ctypes.Structure):
+    """zlib's ``z_stream`` (zlib.h)."""
+
+    _fields_ = [("next_in", ctypes.c_void_p), ("avail_in", ctypes.c_uint),
+                ("total_in", ctypes.c_ulong), ("next_out", ctypes.c_void_p),
+                ("avail_out", ctypes.c_uint), ("total_out", ctypes.c_ulong),
+                ("msg", ctypes.c_char_p), ("state", ctypes.c_void_p),
+                ("zalloc", ctypes.c_void_p), ("zfree", ctypes.c_void_p),
+                ("opaque", ctypes.c_void_p), ("data_type", ctypes.c_int),
+                ("adler", ctypes.c_ulong), ("reserved", ctypes.c_ulong)]
+
+
+Z_OK, Z_STREAM_END, Z_BUF_ERROR = 0, 1, -5
+
+
+@functools.cache
+def _libz():
+    """zlib's C library with the prototypes of its inflate. A ctypes
+    call releases the interpreter lock, so its inflate runs beside the
+    Python of other threads, straight into the caller's buffer."""
+    lib = ctypes.CDLL("libz.so.1")
+    stream = ctypes.POINTER(_ZStream)
+    lib.zlibVersion.argtypes, lib.zlibVersion.restype = [], ctypes.c_char_p
+    lib.inflateInit2_.argtypes = [stream, ctypes.c_int, ctypes.c_char_p,
+                                  ctypes.c_int]
+    lib.inflate.argtypes = [stream, ctypes.c_int]
+    lib.inflateEnd.argtypes = [stream]
+    for f in (lib.inflateInit2_, lib.inflate, lib.inflateEnd):
+        f.restype = ctypes.c_int
+    return lib
+
+
+_INPUT = 1 << 20  # compressed bytes read at a time
+
+
+class _MemberData:
+    """A zip member's bytes, read in order straight into the caller's
+    arrays (`into`): a stored member by the file's ``readinto``, a
+    deflated one by zlib's C inflate (`_libz`). Neither holds the
+    interpreter lock while it works, nor does the CRC-32 of what was
+    read, which `end` checks with the size against the zip's
+    directory."""
+
+    def __init__(self, path, name: str) -> None:
+        self.path, self.name = path, name
+        with zipfile.ZipFile(path) as zf:
+            self.info = zf.getinfo(name)
+        self.fp = open(path, "rb")
+        self.z, self.crc, self.done, self.ended = None, 0, 0, False
+        try:
+            self.fp.seek(self.info.header_offset)
+            local = self.fp.read(30)
+            if local[:4] != b"PK\x03\x04":
+                raise zipfile.BadZipFile(f"{path}: bad local header of "
+                                         f"{name!r}")
+            self.fp.seek(self.info.header_offset + 30
+                         + int.from_bytes(local[26:28], "little")
+                         + int.from_bytes(local[28:30], "little"))
+            self.left = self.info.compress_size  # compressed bytes unread
+            if self.info.compress_type == zipfile.ZIP_DEFLATED:
+                self.buf = bytearray(_INPUT)
+                self.cbuf = (ctypes.c_char * _INPUT).from_buffer(self.buf)
+                z, lib = _ZStream(), _libz()
+                r = lib.inflateInit2_(ctypes.byref(z), -zlib.MAX_WBITS,
+                                      lib.zlibVersion(),
+                                      ctypes.sizeof(_ZStream))
+                if r != Z_OK:
+                    raise zlib.error(f"Error {r} while preparing to "
+                                     "decompress data")
+                self.z = z
+        except BaseException:
+            self.close()
+            raise
+
+    def _read(self, out: memoryview) -> int:
+        """Compressed (or stored) bytes of the member into ``out``."""
+        got = self.fp.readinto(out[:self.left])
+        if not got:
+            raise zipfile.BadZipFile(f"{self.path}: {self.name!r} is cut "
+                                     "short")
+        self.left -= got
+        return got
+
+    def _inflate(self, out: int, n: int) -> int:
+        """Up to ``n`` bytes inflated to the address ``out``, fewer only
+        at the stream's end."""
+        z, lib, done = self.z, _libz(), 0
+        while done < n and not self.ended:
+            if z.avail_in == 0 and self.left:
+                z.avail_in = self._read(memoryview(self.buf))
+                z.next_in = ctypes.addressof(self.cbuf)
+            avail = min(n - done, 1 << 30)
+            z.next_out, z.avail_out = out + done, avail
+            r = lib.inflate(ctypes.byref(z), 0)
+            done += avail - z.avail_out
+            if r == Z_STREAM_END:
+                self.ended = True
+            elif r == Z_BUF_ERROR and z.avail_in == 0 and not self.left:
+                raise zipfile.BadZipFile(f"{self.path}: {self.name!r} ends "
+                                         "before its end-of-stream marker")
+            elif r not in (Z_OK, Z_BUF_ERROR):
+                raise zlib.error(f"Error {r} while decompressing data: "
+                                 f"{(z.msg or b'').decode()}")
+        return done
+
+    def into(self, a: np.ndarray) -> None:
+        """Fill the C-contiguous array ``a`` with the member's next
+        bytes."""
+        out = memoryview(a.reshape(-1)).cast("B")
+        if self.z is None:
+            got = 0
+            while got < len(out):
+                got += self._read(out[got:])
+        elif self._inflate(a.ctypes.data, a.nbytes) < a.nbytes:
+            raise zipfile.BadZipFile(f"{self.path}: {self.name!r} ends "
+                                     "before its frames")
+        self.crc = zlib.crc32(out, self.crc)
+        self.done += a.nbytes
+
+    def end(self) -> None:
+        """Check that the member holds no more and its CRC-32."""
+        scratch = ctypes.create_string_buffer(1)
+        extra = self.left if self.z is None else self._inflate(
+            ctypes.addressof(scratch), 1)
+        if extra or self.done != self.info.file_size:
+            raise zipfile.BadZipFile(f"{self.path}: {self.name!r} holds "
+                                     f"{self.info.file_size} bytes, its "
+                                     f"header {self.done}")
+        if self.crc != self.info.CRC:
+            raise zipfile.BadZipFile(f"Bad CRC-32 for file {self.name!r}")
+
+    def close(self) -> None:
+        if self.z is not None:
+            _libz().inflateEnd(ctypes.byref(self.z))
+            self.z = None
+        self.fp.close()
+
+
+RING_SLOTS = 3      # chunk slots a `ChunkReader` cycles through
+
+
+class RingChunk:
+    """One chunk handed out by a `ChunkReader`: ``frames``, its ring
+    slot, a (chunk, H, W) uint8 buffer whose first ``n`` frames are the
+    chunk's and the rest zeros, and ``times``, a tuple of their n
+    timestamps."""
+
+    __slots__ = ("times", "frames", "n", "_index", "_free")
+
+    def __init__(self, times, frames, n: int, index: int,
+                 free: queue.Queue) -> None:
+        self.times, self.frames, self.n = times, frames, n
+        self._index, self._free = index, free
+
+    def release(self, after=None) -> None:
+        """Hand the slot back to the reader (the first call; later ones
+        do nothing). The reader waits for ``after`` (``.synchronize()``:
+        an event recorded after the slot's copy to the card) before it
+        refills the slot."""
+        if self._free is not None:
+            self._free.put((self._index, after))
+            self._free = None
+
+
+class ChunkReader(_Reader):
+    """An npz's (T, H, W) uint8 ``images``, streamed a chunk at a time: a
+    background thread inflates the member (`_MemberData`: zlib's C
+    inflate, with the zip's CRC-32 and size checked at the end) straight
+    into the slots of ``ring``, the caller's (`RING_SLOTS`, chunk, H, W)
+    uint8 buffer (any that ``np.asarray`` views without a copy, such as a
+    pinned CPU tensor), zeroes a tail chunk's unused frames, and hands
+    each slot over as a `RingChunk` with its timestamps. The consumer
+    hands a slot back with `RingChunk.release`, and the reader refills
+    it only after that. A corrupt or truncated member raises in the
+    consumer at the chunk where it is found."""
+
+    def __init__(self, path, header: _Lazy, times, ring) -> None:
+        super().__init__(len(ring))
+        self.path, self.header, self.times = Path(path), header, times
+        self.slots = list(ring)
+        self._views = [np.asarray(slot) for slot in self.slots]
+        self._free: queue.Queue = queue.Queue()
+        for i in range(len(self.slots)):
+            self._free.put((i, None))
+
+    def _items(self):
+        t, chunk = self.header.shape[0], len(self._views[0])
+        data = _MemberData(self.path, "images.npy")
+        try:
+            head = np.empty(self.header.offset, np.uint8)
+            data.into(head)
+            if _npy_header(io.BytesIO(head.tobytes())) != self.header[:3]:
+                raise ValueError(f"{self.path}: 'images' changed since it "
+                                 "was opened")
+            for c0 in range(0, t, chunk):
+                got = self._get(self._free)
+                if got is None:
+                    return
+                i, after = got
+                if after is not None:
+                    after.synchronize()
+                n, view = min(chunk, t - c0), self._views[i]
+                data.into(view[:n])
+                view[n:] = 0
+                if c0 + n == t:
+                    data.end()
+                yield RingChunk(tuple(self.times[c0:c0 + n]), self.slots[i],
+                                n, i, self._free)
+        finally:
+            data.close()
+
+
+def _empty(shape) -> np.ndarray:
+    return np.empty(shape, np.uint8)
+
+
 class NpzSource:
     """Sequence bundle: times (T,) and any of t_cl/q_cl/mask,
     corners/corner_mask, images (T, H, W) uint8, gt_cam_t, marker_size,
-    camera_matrix, dist_coeffs."""
+    camera_matrix, dist_coeffs.
+
+    Opening it reads every member but ``images``, of which it reads the
+    npy header alone (``images_header``). ``src["images"]`` inflates the
+    array when first asked for and keeps it; `stream` hands it out a
+    chunk at a time from a background thread instead (`ChunkReader`)."""
 
     def __init__(self, path) -> None:
         self.path = Path(path)
+        self.images_header: _Lazy | None = None
         with np.load(self.path, allow_pickle=False) as data:
-            self.data = {k: data[k] for k in data.files}
+            self.data = {k: data[k] for k in data.files if k != "images"}
+            if "images" in data.files:
+                with data.zip.open("images.npy") as f:
+                    header = _npy_header(f)
+                    self.images_header = _Lazy(
+                        *header, f.tell(),
+                        data.zip.getinfo("images.npy").compress_type)
         if "times" not in self.data:
             raise ValueError(f"{path}: missing 'times'")
 
@@ -202,10 +499,31 @@ class NpzSource:
         return self.data["times"]
 
     def has(self, key: str) -> bool:
-        return key in self.data
+        return key in self.data or (key == "images"
+                                    and self.images_header is not None)
 
     def __getitem__(self, key: str) -> np.ndarray:
+        if key == "images" and key not in self.data and self.has(key):
+            with np.load(self.path, allow_pickle=False) as data:
+                self.data[key] = data[key]
         return self.data[key]
+
+    def stream(self, chunk: int, empty=_empty) -> ChunkReader | None:
+        """``images`` as a `ChunkReader` of ``chunk`` frames a slot, in a
+        ring that ``empty(shape)`` makes (a uint8 buffer of that shape),
+        or None where the whole array is the way: an array already
+        inflated; one that is not C-order (T, H, W) uint8 with a
+        timestamp a frame; one neither stored nor deflated."""
+        m = self.images_header
+        if m is None or "images" in self.data:
+            return None
+        if len(m.shape) != 3 or m.dtype != np.uint8 or m.fortran \
+                or m.shape[0] != len(self.times):
+            return None
+        if m.compress_type not in (zipfile.ZIP_STORED, zipfile.ZIP_DEFLATED):
+            return None
+        return ChunkReader(self.path, m, self.times,
+                           empty((RING_SLOTS, chunk, *m.shape[1:])))
 
 
 def save_npz(path, **arrays) -> None:

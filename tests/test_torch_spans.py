@@ -20,6 +20,8 @@ FILTER = ("filter.upload", "filter.scan", "filter.readback")
 SPANS = {"run_slam.request", "input.load", *FRONT, *FILTER, "output.write"}
 # corner input skips the image detector
 IMAGE_ONLY = {"front_end.sweep", "front_end.slots"}
+# one stream's npz images: the chunk step's wait on the reader thread
+WAIT = "input.wait"
 
 
 class FakeCuda(torch.Tensor):
@@ -169,10 +171,11 @@ def test_run_slam_returns_every_span(bundles, chunk4, tmp_path, monkeypatch,
     want = SPANS - (IMAGE_ONLY if kind == "corners" else set())
     assert want <= set(s)
     assert not (IMAGE_ONLY - want) & set(s)
+    assert (WAIT in s) == (kind == "images")
     assert {"load", "front_end", "filter"} <= set(s)
     assert s["input.load"] <= s["load"] <= s["front_end"] <= \
         s["run_slam.request"]
-    front = s["load"] + sum(s[k] for k in FRONT if k in s)
+    front = s["load"] + sum(s[k] for k in (*FRONT, WAIT) if k in s)
     assert 0.75 * s["front_end"] <= front <= s["front_end"]
     back = sum(s[k] for k in FILTER)
     assert 0.5 * s["filter"] <= back <= s["filter"]
@@ -200,7 +203,8 @@ def test_run_slam_spans_follow_the_request(bundles, chunk4, tmp_path,
     assert spans[0].name == "run_slam.request" and spans[0].parent == -1
     assert all(sp.parent == 0 for sp in spans[1:])
     names = [sp.name for sp in spans[1:]]
-    assert names == ["input.load", *FRONT[:4], "front_end.readback",
+    assert names == ["input.load", WAIT, *FRONT[:4], WAIT,
+                     "front_end.readback",
                      "filter.upload", "filter.scan", "filter.readback",
                      "filter.readback", "output.write"]
 
