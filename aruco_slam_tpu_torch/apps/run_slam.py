@@ -36,7 +36,9 @@ spans (`utils.profiling.StageTimer`: ``input.load``, ``front_end.*``,
 ``filter.*``, ``output.write``) appear as user annotations. The timer
 also counts the rows of each frame's fused update (B3):
 ``filter.update_rows``, those that carry an observation, and
-``filter.update_row_slots``, all M of them (`_count_update_rows`), and
+``filter.update_row_slots``, all M of them (`_count_update_rows`), the
+map's slots that hold a landmark by each frame, ``filter.map_slots_used``,
+of ``filter.map_slots``, the capacity a frame (`_count_map_slots`), and
 the front end the markers of each PnP call, ``front_end.pnp_markers``;
 ``RunResult.counters`` returns them. The fleet writes no checkpoint (as
 in JAX).
@@ -148,10 +150,10 @@ def _dev(a, device, dtype=None):
 
 
 def _preload(fcfg: MekfConfig, state, load_map_file, slot_ids):
-    """Seed the filter with a saved map. Under the id->slot table the
-    map's marker ids translate to this run's slots; landmarks the
-    sequence never observed have no slot and are skipped (they could not
-    receive an update anyway)."""
+    """Seed the filter with a saved map: (state, the slots it filled).
+    Under the id->slot table the map's marker ids translate to this
+    run's slots; landmarks the sequence never observed have no slot and
+    are skipped (they could not receive an update anyway)."""
     ids, pos, unc = load_map(load_map_file)
     if slot_ids is not None:
         lut = {int(mid): s for s, mid in enumerate(slot_ids) if mid >= 0}
@@ -163,7 +165,7 @@ def _preload(fcfg: MekfConfig, state, load_map_file, slot_ids):
         ids = np.array([lut[int(ids[j])] for j in keep], np.int64)
     if len(ids):
         state = mekf_mod.preload_map(fcfg, state, ids, pos, unc)
-    return state
+    return state, np.asarray(ids, np.int64)
 
 
 def _count_update_rows(timer: StageTimer, fcfg: MekfConfig, mask) -> None:
@@ -177,6 +179,27 @@ def _count_update_rows(timer: StageTimer, fcfg: MekfConfig, mask) -> None:
     obs = np.minimum((np.asarray(mask) != 0).sum(-1), k)
     timer.count("filter.update_rows", int(obs.sum()) * fcfg.meas_dims)
     timer.count("filter.update_row_slots", obs.size * k * fcfg.meas_dims)
+
+
+def _count_map_slots(timer: StageTimer, filled, mask) -> np.ndarray:
+    """Count the map's slots for the frames of ``mask`` ((..., T, C)
+    accepted observations, on the host): ``filter.map_slots_used``, the
+    slots that hold a landmark by each frame (those in ``filled``
+    (..., C), the slots filled before these frames, and those with an
+    observation at or before the frame), and ``filter.map_slots``, all C
+    of each frame. Returns the slots filled after the last frame."""
+    used = np.logical_or.accumulate(np.asarray(mask) != 0, axis=-2) \
+        | np.asarray(filled)[..., None, :]
+    timer.count("filter.map_slots_used", int(used.sum()))
+    timer.count("filter.map_slots", used.size)
+    return used[..., -1, :] if used.shape[-2] else filled
+
+
+def _saved_active(path) -> np.ndarray:
+    """A run_slam checkpoint's ``MekfState.active`` as its file holds it
+    (each state field is one leaf, in field order)."""
+    with np.load(path) as z:
+        return z[f"leaf_{MekfState._fields.index('active')}"] != 0
 
 
 def _warn_dropped(dropped: np.ndarray, max_obs: int) -> None:
@@ -240,14 +263,18 @@ def run_mekf(cfg: SlamAppConfig, times, t_cl, q_cl, mask, cam,
     the run, and cam_traj then holds the frames done. ``timer`` takes
     the spans ``filter.upload``, ``filter.scan`` (each chunk's scan) and
     ``filter.readback``, or with viewers the loop's ``step`` and
-    ``read``, and the update's rows of every frame filtered
-    (`_count_update_rows`)."""
+    ``read``, and the update's rows and the map's slots of every frame
+    filtered (`_count_update_rows`, `_count_map_slots`; the slots filled
+    before the first from the loaded map's ids or the checkpoint file's
+    ``active``)."""
     timer = timer or StageTimer()
     max_obs = _auto_max_obs(cfg, mask, t_cl.shape[1])
     fcfg = _mekf_config(cfg, t_cl.shape[1], max_obs, with_rotations, cam)
     state = init_state(fcfg, device=device)
+    filled = np.zeros(fcfg.capacity, bool)
     if load_map_file:
-        state = _preload(fcfg, state, load_map_file, slot_ids)
+        state, slots = _preload(fcfg, state, load_map_file, slot_ids)
+        filled[slots] = True
     f32 = torch.float32
     with timer.stage("filter.upload"):
         seq = FrameObservations(
@@ -259,6 +286,7 @@ def run_mekf(cfg: SlamAppConfig, times, t_cl, q_cl, mask, cam,
     start = 0
     if resume:
         state, start, head = _resume(resume, state)
+        filled = _saved_active(resume)
         cam_traj[:start] = head
         for v in viewers:  # align frame providers with the skip
             getattr(v, "skip_to", lambda i: None)(start)
@@ -268,6 +296,7 @@ def run_mekf(cfg: SlamAppConfig, times, t_cl, q_cl, mask, cam,
                 state = mekf_step(fcfg, state, FrameObservations(
                     *(None if a is None else a[i] for a in seq)))
             _count_update_rows(timer, fcfg, mask[i])
+            filled = _count_map_slots(timer, filled, mask[i:i + 1])
             cam_traj[i], lm, active = _snapshot(
                 torch.cat([state.cam_t, state.cam_q]), state.lm,
                 state.active, timer)
@@ -290,6 +319,7 @@ def run_mekf(cfg: SlamAppConfig, times, t_cl, q_cl, mask, cam,
                 state, traj = mekf_scan(fcfg, state, FrameObservations(
                     *(None if a is None else a[s:e] for a in seq)))
             _count_update_rows(timer, fcfg, mask[s:e])
+            filled = _count_map_slots(timer, filled, mask[s:e])
             with timer.stage("filter.readback"):
                 cam_traj[s:e] = traj.cpu().numpy()
             if ckpt_every and ckpt_path is not None and e < tt:
@@ -547,6 +577,7 @@ def run_multi_stream(cfg: SlamAppConfig, inputs: list[str], calib_dir,
             fcfg, states, FrameObservations(t_cl, q_cl, mask, amb),
             mesh=mesh)
     _count_update_rows(timer, fcfg, mask_np)
+    _count_map_slots(timer, np.zeros((s, fcfg.capacity), bool), mask_np)
     with timer.stage("filter.readback"):
         states = MekfState(*(x.to(device) for x in states))
         trajs = trajs.cpu().numpy()

@@ -1,12 +1,13 @@
 """The port's counters (`utils.profiling.StageTimer.count`): run_slam's
 count of the fused update's rows, ``filter.update_rows`` and
-``filter.update_row_slots``, against a hand count from the accepted
-observations it returns, on the CPU (point and rotation landmarks, a
-chunked scan, the viewers' per-frame loop and a two-stream fleet); its
-count of the markers PnP solved, ``front_end.pnp_markers``, on every
-front end, with no launch of the PnP kernel on the CPU
-(`cuda_pnp.solve.launches` before and after); and on a card, that
-counting reads nothing back and launches nothing."""
+``filter.update_row_slots``, and of the map's slots,
+``filter.map_slots_used`` and ``filter.map_slots``, against a hand
+count from the accepted observations it returns, on the CPU (point and
+rotation landmarks, a chunked scan, the viewers' per-frame loop and a
+two-stream fleet); its count of the markers PnP solved,
+``front_end.pnp_markers``, on every front end, with no launch of the
+PnP kernel on the CPU (`cuda_pnp.solve.launches` before and after); and
+on a card, that counting reads nothing back and launches nothing."""
 
 import functools
 
@@ -22,6 +23,7 @@ from aruco_slam_tpu_torch.ops import cuda_pnp
 from aruco_slam_tpu_torch.utils import profiling
 
 ROWS, SLOTS = "filter.update_rows", "filter.update_row_slots"
+USED, MAP = "filter.map_slots_used", "filter.map_slots"
 PNP = "front_end.pnp_markers"
 # the 1080p camera at half scale, for 960x540 frames
 HALF_K = np.array([[707.45, 0.0, 483.5], [0.0, 707.45, 272.15],
@@ -62,6 +64,31 @@ def hand_count(masks, max_obs: int, capacity: int, meas_dims: int):
     return rows, slots
 
 
+def map_count(masks, filled=None):
+    """(slots that hold a landmark by each frame, all slots) over the
+    frames of every (T, C) mask, counted frame by frame: a slot holds
+    one from its first accepted observation on, or from the start where
+    ``filled`` (a list of slot lists, one a mask) names it."""
+    used = slots = 0
+    for k, mask in enumerate(masks):
+        have = set() if filled is None else {int(j) for j in filled[k]}
+        for frame in np.asarray(mask):
+            have |= {int(j) for j in np.flatnonzero(frame)}
+            used += len(have)
+            slots += len(frame)
+    return used, slots
+
+
+def counted(rows_slots, masks, pnp=None):
+    """The counters a MEKF request should hold: the update's rows, the
+    map's slots from ``masks`` and, where given, the PnP markers."""
+    want = dict(zip((ROWS, SLOTS), rows_slots))
+    want.update(zip((USED, MAP), map_count(masks)))
+    if pnp is not None:
+        want[PNP] = pnp
+    return want
+
+
 def test_counters_add_by_name():
     timer = profiling.StageTimer()
     assert timer.counters == {}
@@ -86,7 +113,7 @@ def test_run_slam_counts_the_update_rows(bundles, tmp_path, filt, meas_dims,
     res = trun.main(_argv(str(bundles["poses"]), tmp_path, "--filter",
                           filt, "--capacity", "16", *flags))
     rows, slots = hand_count([res.obs_mask], max_obs, 16, meas_dims)
-    assert res.counters == {ROWS: rows, SLOTS: slots}
+    assert res.counters == counted((rows, slots), [res.obs_mask])
     assert slots == len(res.obs_mask) * max_obs * meas_dims
     assert 0 < rows <= slots
 
@@ -101,7 +128,7 @@ def test_viewer_loop_counts_every_frame(bundles, tmp_path, monkeypatch):
                           "mekf_rotations", "--capacity", "16", "--viz-2d",
                           "--viz-dir", str(tmp_path / "viz")))
     want = hand_count([res.obs_mask], 16, 16, 7)
-    assert res.counters == {ROWS: want[0], SLOTS: want[1], PNP: 4 * 16}
+    assert res.counters == counted(want, [res.obs_mask], 4 * 16)
     assert cuda_pnp.solve.launches == launches
     assert want == (7 * int(res.obs_mask.sum()), 4 * 16 * 7)
 
@@ -120,8 +147,8 @@ def test_fleet_counts_its_streams_together(bundles, tmp_path, monkeypatch,
                           "16"))
     assert len(res) == 2 and res[0].counters is res[1].counters
     want = hand_count([r.obs_mask for r in res], 16, 16, meas_dims)
-    assert res[0].counters == {ROWS: want[0], SLOTS: want[1],
-                               PNP: 2 * 4 * 16}
+    assert res[0].counters == counted(want, [r.obs_mask for r in res],
+                                      2 * 4 * 16)
     assert cuda_pnp.solve.launches == launches
     assert want[0] > 0
 
@@ -217,5 +244,5 @@ def test_counting_reads_nothing_back_and_launches_nothing(tmp_path,
     res = trun.main(argv)
     assert tm.mekf_scan.graph_steps - steps == 48
     assert seen == [[], []]
-    assert res.counters == dict(zip((ROWS, SLOTS), hand_count(
-        [res.obs_mask], 16, 64, 7 if rotations else 3)))
+    assert res.counters == counted(hand_count(
+        [res.obs_mask], 16, 64, 7 if rotations else 3), [res.obs_mask])
