@@ -37,8 +37,10 @@ spans (`utils.profiling.StageTimer`: ``input.load``, ``front_end.*``,
 also counts the rows of each frame's fused update (B3):
 ``filter.update_rows``, those that carry an observation, and
 ``filter.update_row_slots``, all M of them (`_count_update_rows`), the
-map's slots that hold a landmark by each frame, ``filter.map_slots_used``,
-of ``filter.map_slots``, the capacity a frame (`_count_map_slots`), and
+frames whose update ran its N x N products in the wide GEMM tiling,
+``filter.b3_wide_frames`` (`_count_wide_frames`), the map's slots that
+hold a landmark by each frame, ``filter.map_slots_used``, of
+``filter.map_slots``, the capacity a frame (`_count_map_slots`), and
 the front end the markers of each PnP call, ``front_end.pnp_markers``;
 ``RunResult.counters`` returns them. The fleet writes no checkpoint (as
 in JAX).
@@ -84,6 +86,7 @@ from aruco_slam_tpu_torch.apps.front_end import (
     load_video_observations)
 from aruco_slam_tpu_torch.bench import ate
 from aruco_slam_tpu_torch.config import SlamAppConfig
+from aruco_slam_tpu_torch.filters import cuda_mekf
 from aruco_slam_tpu_torch.filters import mekf as mekf_mod
 from aruco_slam_tpu_torch.filters import (
     FrameObservations, MekfConfig, MekfState, init_state, mekf_scan,
@@ -181,6 +184,23 @@ def _count_update_rows(timer: StageTimer, fcfg: MekfConfig, mask) -> None:
     timer.count("filter.update_row_slots", obs.size * k * fcfg.meas_dims)
 
 
+def _count_wide_frames(timer: StageTimer, fcfg: MekfConfig,
+                       device: torch.device, frames: int,
+                       streams: int = 1) -> None:
+    """Count ``filter.b3_wide_frames``: of ``frames`` frames filtered,
+    those whose fused update (B3) ran its N x N products in the wide
+    GEMM tiling, by the kernel's own rule (`cuda_mekf.gemm_tiling`) at
+    N and the ``streams`` of one launch, on the host (no sync, no
+    launch); none where B3 does not run (a CPU device, the XLA-form
+    update)."""
+    wide = device.type == "cuda" and mekf_mod.update_takes_kernel(fcfg)
+    if wide:
+        with torch.cuda.device(device):
+            wide = cuda_mekf.gemm_tiling(fcfg.err_dim, fcfg.err_dim,
+                                         streams) == "wide"
+    timer.count("filter.b3_wide_frames", frames if wide else 0)
+
+
 def _count_map_slots(timer: StageTimer, filled, mask) -> np.ndarray:
     """Count the map's slots for the frames of ``mask`` ((..., T, C)
     accepted observations, on the host): ``filter.map_slots_used``, the
@@ -263,8 +283,9 @@ def run_mekf(cfg: SlamAppConfig, times, t_cl, q_cl, mask, cam,
     the run, and cam_traj then holds the frames done. ``timer`` takes
     the spans ``filter.upload``, ``filter.scan`` (each chunk's scan) and
     ``filter.readback``, or with viewers the loop's ``step`` and
-    ``read``, and the update's rows and the map's slots of every frame
-    filtered (`_count_update_rows`, `_count_map_slots`; the slots filled
+    ``read``, and the update's rows, its wide-tiled frames and the map's
+    slots of every frame filtered (`_count_update_rows`,
+    `_count_wide_frames`, `_count_map_slots`; the slots filled
     before the first from the loaded map's ids or the checkpoint file's
     ``active``)."""
     timer = timer or StageTimer()
@@ -296,6 +317,7 @@ def run_mekf(cfg: SlamAppConfig, times, t_cl, q_cl, mask, cam,
                 state = mekf_step(fcfg, state, FrameObservations(
                     *(None if a is None else a[i] for a in seq)))
             _count_update_rows(timer, fcfg, mask[i])
+            _count_wide_frames(timer, fcfg, device, 1)
             filled = _count_map_slots(timer, filled, mask[i:i + 1])
             cam_traj[i], lm, active = _snapshot(
                 torch.cat([state.cam_t, state.cam_q]), state.lm,
@@ -319,6 +341,7 @@ def run_mekf(cfg: SlamAppConfig, times, t_cl, q_cl, mask, cam,
                 state, traj = mekf_scan(fcfg, state, FrameObservations(
                     *(None if a is None else a[s:e] for a in seq)))
             _count_update_rows(timer, fcfg, mask[s:e])
+            _count_wide_frames(timer, fcfg, device, e - s)
             filled = _count_map_slots(timer, filled, mask[s:e])
             with timer.stage("filter.readback"):
                 cam_traj[s:e] = traj.cpu().numpy()
@@ -577,6 +600,8 @@ def run_multi_stream(cfg: SlamAppConfig, inputs: list[str], calib_dir,
             fcfg, states, FrameObservations(t_cl, q_cl, mask, amb),
             mesh=mesh)
     _count_update_rows(timer, fcfg, mask_np)
+    _count_wide_frames(timer, fcfg, device, s * tlen,
+                       s if mesh is None else s // ndev)
     _count_map_slots(timer, np.zeros((s, fcfg.capacity), bool), mask_np)
     with timer.stage("filter.readback"):
         states = MekfState(*(x.to(device) for x in states))

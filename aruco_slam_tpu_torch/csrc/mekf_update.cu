@@ -14,13 +14,30 @@
 // 7.1 us at N = 393, M = 112 (479 MFLOP) and 6.6 us for 8 streams of
 // (201, 48); but the 2·`ns_iters` Newton–Schulz products are 40
 // dependent M x M x M steps, and P (618 KB at N = 393) fits no block.
-// Design, five launches per frame for any S (the stream is a grid axis,
-// and each stream's arithmetic is the single-stream launch's, operation
-// for operation, so a batched launch is bit-equal to S single ones):
-//  1. PHᵀ in the register-tiled GEMM below (32x32 output tiles, 2x2
-//     outputs a thread, float2 shared-memory loads, the next 64-deep
-//     tile fetched into registers while the current one is multiplied,
-//     up to two depth segments, the stream in blockIdx.z).
+// At N = 1545, M = 144 (a 512-marker map) the N x N products are the
+// work: ~16 of the chain's 17 GFLOP, a 0.26 ms bound. There the 32x32
+// tiling below stopped at 14 and 8 TFLOP/s: it loads one float from
+// shared memory per FMA (a float2 of A and one of B for 4 FMAs), and an
+// SM's shared memory gives 32 floats a clock to 128 FFMA lanes, ~25% of
+// the f32 rate (the Joseph sum lower still, its mirror's operands and
+// sums halving its occupancy). The wide tiling loads a quarter float
+// per FMA or less (float4s of A and B for 64 FMAs or more a depth step)
+// from a ring of stages that cp.async fills, 4 bytes a copy and a
+// warp's copies on contiguous bytes, while the stage before is
+// multiplied.
+// Design, five launches per frame for any S, six with the wide Joseph
+// sum (the stream is a grid axis, and each stream's arithmetic is the
+// single-stream launch's, operation for operation, so a batched launch
+// is bit-equal to S single ones):
+//  1. PHᵀ in the register-tiled GEMM below, up to two depth segments,
+//     the stream in blockIdx.z, in one of two tilings of the same
+//     arithmetic (bit-identical outputs), each launch's chosen by its
+//     shape (`gemm_tiling`): the 32x32 one (2x2 outputs a thread,
+//     float2 shared-memory loads, the next 64-deep tile fetched into
+//     registers) while the launch's outputs fill fewer than half the
+//     card's SMs with a wide tile each, else the wide one. At N = 1545
+//     the three N x N products (steps 3-5) take the wide tiling and
+//     PHᵀ the 32x32 one; at N 201 and 393 every launch the 32x32 one.
 //  2. The Newton–Schulz steps in one 8-CTA thread-block cluster per
 //     stream (the stream in blockIdx.y), the iterates in the CTAs'
 //     shared memory and exchanged through distributed shared memory
@@ -46,12 +63,15 @@
 //  3. I − KH: the GEMM with an identity-minus epilogue.
 //  4. (I − KH)P.
 //  5. The Joseph sum and KRKᵀ as one GEMM over the concatenated depth
-//     N + M, [(I−KH)P | K diag(r)] x [(I−KH) | K]ᵀ, whose blocks each
-//     compute an output tile and its mirror and write 0.5(C + Cᵀ) to
-//     both: P' is symmetrized in the same launch and exactly symmetric.
+//     N + M, [(I−KH)P | K diag(r)] x [(I−KH) | K]ᵀ. In the 32x32
+//     tiling its blocks each compute an output tile and its mirror and
+//     write 0.5(C + Cᵀ) to both; in the wide one the product is written
+//     whole into P' and a second launch (kFold) writes 0.5(C_ij + C_ji)
+//     to both of each pair. P' is exactly symmetric either way.
 // Nothing synchronises with the host.
 #include <cooperative_groups.h>
 
+#include <atomic>
 #include <climits>
 
 #include "common.cuh"
@@ -61,12 +81,48 @@ namespace cg = cooperative_groups;
 namespace {
 
 // ------------------------------------------------------------ GEMM
+// Two tilings of one product. Both do the same arithmetic: each output
+// is one fmaf chain over k in increasing order (segment 0, then
+// segment 1 into the same sum), from 0, an A element times scale[k]
+// rounded before its fmaf; k is never split and no tensor core is used.
+// So the two give the same bits, and the choice between them is one of
+// speed alone (`gemm_tiling`).
+enum Tiling { kTileByShape = 0, kNarrow = 1, kWide = 2 };
+
+constexpr int kGemmThreads = 256;   // 16 x 16 threads, both tilings
+constexpr int kMaxDevices = 64;     // cards whose attributes are cached
+
+// kNarrow: 32x32 output tiles, 2 x 2 outputs a thread, float2
+// shared-memory loads, the next 64-deep tile fetched into registers.
 constexpr int kTile = 32;           // output tile (rows and columns)
 constexpr int kDepth = 64;          // depth per shared-memory stage
-constexpr int kGemmThreads = 256;   // 16 x 16 threads, 2 x 2 outputs each
 constexpr int kPad = kTile + 2;     // row stride of a staged tile
 
-enum Epilogue { kStore, kEyeMinus, kAddDiag, kSymPair };
+// kWide: kWideRows x kWideCols output tiles, kWideTm x kWideTn outputs
+// a thread (4 x 4 blocks, kWideRows / (kWideTm / 4) rows and
+// kWideCols / (kWideTn / 4) columns apart), A and B read from shared
+// memory as float4, a ring of kWideStages stages of depth kWideDepth
+// that cp.async fills. On an H100 at N 1545 this was the fastest of the
+// tiles 64x64 to 128x128, the thread tiles 16x8 and 8x16 (254 registers,
+// ~35% slower) and 2 to 4 stages, at 3 blocks an SM (167 registers; at
+// 4 the 128-register cap spills).
+constexpr int kWideRows = 128;
+constexpr int kWideCols = 64;
+constexpr int kWideTm = 8;
+constexpr int kWideTn = 8;
+constexpr int kWideThreads = kWideRows * kWideCols / (kWideTm * kWideTn);
+constexpr int kWideBlocks = 3;            // blocks an SM (registers)
+constexpr int kWideDepth = 16;
+constexpr int kWideStages = 3;
+constexpr int kWideRun = 8;               // k-contiguous: lanes a row
+constexpr int kWideLdA = kWideRows + 4;   // row stride of a staged A
+constexpr int kWideLdB = kWideCols + 4;   // (k-major) and B tile
+constexpr int kWideStage = kWideDepth * (kWideLdA + kWideLdB) + kWideDepth;
+constexpr int kWideSmem = kWideStages * kWideStage * sizeof(float);
+constexpr int kWideRowStep = kWideRows * 4 / kWideTm;  // between 4x4s
+constexpr int kWideColStep = kWideCols * 4 / kWideTn;
+
+enum Epilogue { kStore, kEyeMinus, kAddDiag, kSymPair, kFold };
 
 // A(i, k) = trans ? p[k * ld + i] : p[i * ld + k] (times scale[k] when
 // scale is given); B(k, j) = trans ? p[j * ld + k] : p[k * ld + j].
@@ -82,7 +138,8 @@ struct Operand {
 
 // C (m x n) = the sum over up to two depth segments of A_s B_s, then
 // the epilogue: kStore C; kEyeMinus I − C; kAddDiag C + diag(r);
-// kSymPair (m == n) 0.5 (C + Cᵀ), each block a tile and its mirror.
+// kSymPair (m == n) 0.5 (C + Cᵀ), each block a tile and its mirror;
+// kFold (m == n) C ← 0.5 (C + Cᵀ) in place, on C as stored.
 struct Gemm {
     int m, n, segs;
     int depth[2];
@@ -93,6 +150,30 @@ struct Gemm {
     const float* r;
     long long sr;
 };
+
+// One output of the kStore, kEyeMinus and kAddDiag epilogues.
+template <int kMode>
+__device__ __forceinline__ void put_c(const Gemm& g, float* c, long long z,
+                                      int i, int j, float v) {
+    float* dst = c + static_cast<long long>(i) * g.ldc + j;
+    if (kMode == kStore)
+        *dst = v;
+    else if (kMode == kEyeMinus)
+        *dst = (i == j ? 1.0f : 0.0f) - v;
+    else
+        *dst = v + (i == j ? g.r[z * g.sr + i] : 0.0f);
+}
+
+// Tile pair `b` of the pairs I <= J of `tiles` tiles a side, row by row.
+__device__ __forceinline__ void tile_pair(int b, int tiles, int& ti,
+                                          int& tj) {
+    ti = 0;
+    while (b >= tiles - ti) {
+        b -= tiles - ti;
+        ++ti;
+    }
+    tj = ti + b;
+}
 
 constexpr int kPer = kTile * kDepth / kGemmThreads;  // tile elements a thread
 
@@ -169,8 +250,10 @@ __device__ __forceinline__ void fma2x2(float (&acc)[2][2], float2 a,
     acc[1][1] = fmaf(a.y, b.y, acc[1][1]);
 }
 
+// The kNarrow tiling: a 32x32 output tile a block (kSymPair: a tile
+// and its mirror).
 template <int kMode>
-__global__ void __launch_bounds__(kGemmThreads) gemm_kernel(Gemm g) {
+__device__ __forceinline__ void narrow_tile(const Gemm& g) {
     constexpr int kMirror = kMode == kSymPair ? kDepth : 1;
     __shared__ __align__(16) float as[kDepth][kPad];
     __shared__ __align__(16) float bs[kDepth][kPad];
@@ -181,15 +264,11 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(Gemm g) {
     const long long z = blockIdx.z;
     int i0, j0;
     if (kMode == kSymPair) {  // blockIdx.x walks the tile pairs I <= J
-        const int tiles = (g.n + kTile - 1) / kTile;
-        int ti = 0;
-        int rem = static_cast<int>(blockIdx.x);
-        while (rem >= tiles - ti) {
-            rem -= tiles - ti;
-            ++ti;
-        }
+        int ti, tj;
+        tile_pair(static_cast<int>(blockIdx.x), (g.n + kTile - 1) / kTile,
+                  ti, tj);
         i0 = ti * kTile;
-        j0 = (ti + rem) * kTile;
+        j0 = tj * kTile;
     } else {
         i0 = static_cast<int>(blockIdx.y) * kTile;
         j0 = static_cast<int>(blockIdx.x) * kTile;
@@ -250,26 +329,274 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(Gemm g) {
             const int i = i0 + ty * 2 + a;
             const int j = j0 + tx * 2 + b;
             if (i >= g.m || j >= g.n) continue;
-            const float v = acc[a][b];
-            if (kMode == kStore) {
-                c[static_cast<long long>(i) * g.ldc + j] = v;
-            } else if (kMode == kEyeMinus) {
-                c[static_cast<long long>(i) * g.ldc + j] =
-                    (i == j ? 1.0f : 0.0f) - v;
-            } else if (kMode == kAddDiag) {
-                c[static_cast<long long>(i) * g.ldc + j] =
-                    v + (i == j ? g.r[z * g.sr + i] : 0.0f);
+            if constexpr (kMode != kSymPair) {
+                put_c<kMode>(g, c, z, i, j, acc[a][b]);
             } else {
                 // mir[b][a] = C[j][i] (the mirror's row offset is the
                 // thread's column offset); the sum is commutative, so
                 // the two writes, and the diagonal tile's duplicate
                 // writes, hold the same bits
-                const float sym = 0.5f * (v + mir[b][a]);
+                const float sym = 0.5f * (acc[a][b] + mir[b][a]);
                 c[static_cast<long long>(i) * g.ldc + j] = sym;
                 c[static_cast<long long>(j) * g.ldc + i] = sym;
             }
         }
     }
+}
+
+// dst = 4 bytes at src, or 0 where !ok (src is then not read, and may
+// lie outside the operand), without registers: the copy lands in shared
+// memory behind cp.async.wait_group.
+__device__ __forceinline__ void copy4(float* dst, const float* src, bool ok) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void copy_commit() {
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void copy_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// dst[k][x] = the operand's element (x0 + x, k0 + k) for x < kX, k <
+// kWideDepth, zero outside xn x depth: element (x, k) at p[x ld + k]
+// when kKContig, else at p[k ld + x]. 4 bytes a copy (N 1545's rows are
+// not 16-byte aligned), and a warp's 32 copies read contiguous bytes
+// and land on 32 banks: along x, 32 consecutive x of one k (128
+// bytes); along k, 4 rows x 8 consecutive k (32 bytes a row; the row
+// stride lds is 4 mod 32). A thread's copies keep its k (along x: its
+// x) and step the other coordinate by a constant.
+template <int kX, bool kKContig>
+__device__ __forceinline__ void stage_operand(float* dst, int lds,
+                                              const float* p, int ld, int x0,
+                                              int xn, int k0, int depth) {
+    constexpr int kCopies = kX * kWideDepth / kWideThreads;
+    constexpr int kGroups = kWideDepth / kWideRun;   // runs a row
+    constexpr int kDx = kKContig ? kWideThreads / kWideDepth : 0;
+    constexpr int kDk = kKContig ? 0 : kWideThreads / kX;
+    static_assert(kCopies * kWideThreads == kX * kWideDepth
+                      && (kKContig ? kWideThreads / 32 % kGroups == 0
+                                   : kWideThreads % kX == 0),
+                  "wide staging covers the tile");
+    const int w = static_cast<int>(threadIdx.x) / 32;
+    const int lane = static_cast<int>(threadIdx.x) % 32;
+    const int x = kKContig ? w / kGroups * (32 / kWideRun) + lane / kWideRun
+                           : static_cast<int>(threadIdx.x) % kX;
+    const int k = kKContig ? w % kGroups * kWideRun + lane % kWideRun
+                           : static_cast<int>(threadIdx.x) / kX;
+    const float* src = kKContig
+        ? p + static_cast<long long>(x0 + x) * ld + k0 + k
+        : p + static_cast<long long>(k0 + k) * ld + x0 + x;
+    const long long step = static_cast<long long>(kDx + kDk) * ld;
+    float* d = dst + k * lds + x;
+#pragma unroll
+    for (int v = 0; v < kCopies; ++v)
+        copy4(d + v * (kDk * lds + kDx), src + v * step,
+              x0 + x + v * kDx < xn && k0 + k + v * kDk < depth);
+}
+
+template <int kX>
+__device__ __forceinline__ void stage_any(float* dst, int lds,
+                                          const float* p, int ld,
+                                          bool kcontig, int x0, int xn,
+                                          int k0, int depth) {
+    if (kcontig)
+        stage_operand<kX, true>(dst, lds, p, ld, x0, xn, k0, depth);
+    else
+        stage_operand<kX, false>(dst, lds, p, ld, x0, xn, k0, depth);
+}
+
+// Stage k-tile t (segment 0's tiles, then segment 1's) of the block at
+// (i0, j0) into `st`: a[k][i] = A(i0 + i, k0 + k), b[k][j] =
+// B(k0 + k, j0 + j) and the segment's scale at k0 + k.
+__device__ __forceinline__ void wide_stage(float* st, const Gemm& g,
+                                           long long z, int t, int tiles0,
+                                           int i0, int j0) {
+    const int s = t < tiles0 ? 0 : 1;
+    // (a select, not g.a[s]: an index into the parameter's arrays that
+    // is not known at compile time would copy them to local memory)
+    const Operand& oa = s ? g.a[1] : g.a[0];
+    const Operand& ob = s ? g.b[1] : g.b[0];
+    const int depth = s ? g.depth[1] : g.depth[0];
+    const int k0 = (t - s * tiles0) * kWideDepth;
+    float* b = st + kWideDepth * kWideLdA;
+    stage_any<kWideRows>(st, kWideLdA, oa.p + z * oa.stride, oa.ld, !oa.trans,
+                         i0, g.m, k0, depth);
+    stage_any<kWideCols>(b, kWideLdB, ob.p + z * ob.stride, ob.ld, ob.trans,
+                         j0, g.n, k0, depth);
+    if (oa.scale != nullptr && threadIdx.x < kWideDepth) {
+        const int k = k0 + static_cast<int>(threadIdx.x);
+        copy4(b + kWideDepth * kWideLdB + threadIdx.x,
+              oa.scale + z * oa.sstride + k, k < depth);
+    }
+}
+
+// The thread's kWideTm A and kWideTn B values at depth k of a staged
+// k-tile: rows g kWideRowStep + 4 ty + r, columns g kWideColStep +
+// 4 tx + c.
+__device__ __forceinline__ void wide_frag(float (&av)[kWideTm],
+                                          float (&bv)[kWideTn],
+                                          const float* st, int k, int ty,
+                                          int tx) {
+    const float* a = st + k * kWideLdA + ty * 4;
+    const float* b = st + kWideDepth * kWideLdA + k * kWideLdB + tx * 4;
+#pragma unroll
+    for (int h = 0; h < kWideTm / 4; ++h) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(a + h * kWideRowStep);
+        av[4 * h] = v.x;
+        av[4 * h + 1] = v.y;
+        av[4 * h + 2] = v.z;
+        av[4 * h + 3] = v.w;
+    }
+#pragma unroll
+    for (int h = 0; h < kWideTn / 4; ++h) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(b + h * kWideColStep);
+        bv[4 * h] = v.x;
+        bv[4 * h + 1] = v.y;
+        bv[4 * h + 2] = v.z;
+        bv[4 * h + 3] = v.w;
+    }
+}
+
+// acc += one staged k-tile's products, depth k + 1's values read while
+// depth k's are multiplied.
+__device__ __forceinline__ void wide_products(
+    float (&acc)[kWideTm][kWideTn], const float* st, int ty, int tx) {
+    float av[2][kWideTm], bv[2][kWideTn];
+    wide_frag(av[0], bv[0], st, 0, ty, tx);
+#pragma unroll
+    for (int k = 0; k < kWideDepth; ++k) {
+        if (k + 1 < kWideDepth)
+            wide_frag(av[(k + 1) % 2], bv[(k + 1) % 2], st, k + 1, ty, tx);
+#pragma unroll
+        for (int r = 0; r < kWideTm; ++r) {
+#pragma unroll
+            for (int c = 0; c < kWideTn; ++c)
+                acc[r][c] = fmaf(av[k % 2][r], bv[k % 2][c], acc[r][c]);
+        }
+    }
+}
+
+// A staged A tile times its staged scale, in place, each element
+// rounded once as kNarrow rounds it when it stages it (a pass of its
+// own, so one body of products serves both segments).
+__device__ __forceinline__ void wide_scale(float* st) {
+    const float* scale = st + kWideDepth * (kWideLdA + kWideLdB);
+    constexpr int kEach = kWideDepth * kWideRows / kWideThreads;
+    static_assert(kEach * kWideThreads == kWideDepth * kWideRows,
+                  "the scale pass covers the tile");
+#pragma unroll
+    for (int v = 0; v < kEach; ++v) {
+        const int e = static_cast<int>(threadIdx.x) + v * kWideThreads;
+        st[e / kWideRows * kWideLdA + e % kWideRows] *= scale[e / kWideRows];
+    }
+}
+
+// The kWide tiling: a kWideRows x kWideCols output tile a block. The
+// ring's k-tile t + kWideStages − 1 is copied in while tile t is
+// multiplied: one barrier a tile, after which the slot of tile t − 1 is
+// free.
+template <int kMode>
+__device__ __forceinline__ void wide_tile(const Gemm& g) {
+    extern __shared__ __align__(16) float ring[];
+    const long long z = blockIdx.z;
+    const int i0 = static_cast<int>(blockIdx.y) * kWideRows;
+    const int j0 = static_cast<int>(blockIdx.x) * kWideCols;
+    const int ty = threadIdx.x / (kWideCols / kWideTn);
+    const int tx = threadIdx.x % (kWideCols / kWideTn);
+    const int tiles0 = (g.depth[0] + kWideDepth - 1) / kWideDepth;
+    const int tiles =
+        tiles0 + (g.segs > 1 ? (g.depth[1] + kWideDepth - 1) / kWideDepth
+                             : 0);
+#pragma unroll
+    for (int t = 0; t < kWideStages - 1; ++t) {
+        if (t < tiles) wide_stage(ring + t * kWideStage, g, z, t, tiles0, i0,
+                                  j0);
+        copy_commit();
+    }
+    float acc[kWideTm][kWideTn];
+#pragma unroll
+    for (int r = 0; r < kWideTm; ++r) {
+#pragma unroll
+        for (int c = 0; c < kWideTn; ++c) acc[r][c] = 0.0f;
+    }
+    for (int t = 0; t < tiles; ++t) {
+        copy_wait<kWideStages - 2>();  // this thread's copies of tile t
+        __syncthreads();               // everyone's; tile t − 1 done
+        const int next = t + kWideStages - 1;
+        if (next < tiles)
+            wide_stage(ring + (next % kWideStages) * kWideStage, g, z, next,
+                       tiles0, i0, j0);
+        copy_commit();
+        float* st = ring + (t % kWideStages) * kWideStage;
+        if ((t < tiles0 ? g.a[0] : g.a[1]).scale != nullptr) {
+            wide_scale(st);
+            __syncthreads();
+        }
+        wide_products(acc, st, ty, tx);
+    }
+    float* c = g.c + z * g.sc;
+#pragma unroll
+    for (int r = 0; r < kWideTm; ++r) {
+        const int i = i0 + r / 4 * kWideRowStep + ty * 4 + r % 4;
+        if (i >= g.m) continue;
+#pragma unroll
+        for (int q = 0; q < kWideTn; ++q) {
+            const int j = j0 + q / 4 * kWideColStep + tx * 4 + q % 4;
+            if (j < g.n) put_c<kMode>(g, c, z, i, j, acc[r][q]);
+        }
+    }
+}
+
+// kFold: a block reads a 32x32 tile of C and its mirror, then writes
+// 0.5 (C_ij + C_ji) to both (commutative, so the two writes hold the
+// same bits, as kSymPair's do).
+__device__ __forceinline__ void fold_pair(const Gemm& g) {
+    __shared__ float t[2][kTile][kTile + 1];
+    int ti, tj;
+    tile_pair(static_cast<int>(blockIdx.x), (g.n + kTile - 1) / kTile, ti,
+              tj);
+    const int i0 = ti * kTile;
+    const int j0 = tj * kTile;
+    float* c = g.c + static_cast<long long>(blockIdx.z) * g.sc;
+    const int col = threadIdx.x % kTile;
+    const int row = threadIdx.x / kTile;
+    constexpr int kRows = kGemmThreads / kTile;
+    for (int r = row; r < kTile; r += kRows) {
+        if (i0 + r < g.n && j0 + col < g.n)
+            t[0][r][col] = c[static_cast<long long>(i0 + r) * g.ldc + j0 + col];
+        if (j0 + r < g.n && i0 + col < g.n)
+            t[1][r][col] = c[static_cast<long long>(j0 + r) * g.ldc + i0 + col];
+    }
+    __syncthreads();
+    for (int r = row; r < kTile; r += kRows) {
+        if (i0 + r < g.n && j0 + col < g.n)
+            c[static_cast<long long>(i0 + r) * g.ldc + j0 + col] =
+                0.5f * (t[0][r][col] + t[1][col][r]);
+        if (j0 + r < g.n && i0 + col < g.n)
+            c[static_cast<long long>(j0 + r) * g.ldc + i0 + col] =
+                0.5f * (t[1][r][col] + t[0][col][r]);
+    }
+}
+
+// Every kernel of the GEMM is this template (the fold included).
+template <int kMode, int kTiling>
+__global__ void __launch_bounds__(kTiling == kWide ? kWideThreads
+                                                   : kGemmThreads,
+                                  kTiling == kWide ? kWideBlocks : 1)
+    gemm_kernel(Gemm g) {
+    if constexpr (kMode == kFold)
+        fold_pair(g);
+    else if constexpr (kTiling == kWide)
+        wide_tile<kMode>(g);
+    else
+        narrow_tile<kMode>(g);
 }
 
 Operand op(const float* p, int ld, int trans, long long stride,
@@ -293,13 +620,76 @@ Gemm gemm1(int m, int n, int depth, Operand a, Operand b, float* c, int ldc,
     return g;
 }
 
+// The current card's SM count, read once a card (0 if unreadable).
+int device_sms() {
+    static std::atomic<int> sms[kMaxDevices];
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+    if (dev < kMaxDevices && sms[dev].load() > 0) return sms[dev].load();
+    int count = 0;
+    if (cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev)
+        != cudaSuccess)
+        return 0;
+    if (dev < kMaxDevices) sms[dev].store(count);
+    return count;
+}
+
+// The tiling of a launch of m x n outputs on `streams` streams: kWide
+// where its outputs fill at least half the card's SMs with a wide tile
+// each, else kNarrow, whose 8x more blocks fill the card where the wide
+// tiles would leave most SMs idle. On an H100 every launch this sends
+// to the wide tiling ran faster there (the smallest, 777 x 777 at 74
+// wide tiles' worth, 0.151 against 0.263 ms), and those of N 201 and
+// N 393 (5 and 19) ran faster in the 32x32 one.
+int gemm_tiling(int m, int n, int streams) {
+    const long long outputs = static_cast<long long>(streams) * m * n;
+    const long long sms = device_sms();
+    return sms > 0 && 2 * outputs >= sms * kWideRows * kWideCols ? kWide
+                                                                 : kNarrow;
+}
+
+// The wide kernel's shared-memory ceiling, set once a card (the
+// attribute is the card's).
 template <int kMode>
-int launch_gemm(const Gemm& g, int streams, cudaStream_t stream) {
+int wide_smem() {
+    static std::atomic<bool> set[kMaxDevices];
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < kMaxDevices && set[dev].load()) return 0;
+    err = cudaFuncSetAttribute(gemm_kernel<kMode, kWide>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kWideSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < kMaxDevices) set[dev].store(true);
+    return 0;
+}
+
+// The GEMM in `tiling` (kTileByShape: `gemm_tiling`). kSymPair in the
+// wide tiling is two launches: the whole product into C, then kFold.
+template <int kMode>
+int launch_gemm(const Gemm& g, int streams, int tiling, cudaStream_t stream) {
+    if (tiling == kTileByShape) tiling = gemm_tiling(g.m, g.n, streams);
     const int tn = (g.n + kTile - 1) / kTile;
+    const dim3 pairs(tn * (tn + 1) / 2, 1, streams);
+    if (tiling == kWide) {
+        constexpr int kWideMode = kMode == kSymPair ? kStore : kMode;
+        int err = wide_smem<kWideMode>();
+        if (err) return err;
+        const dim3 grid((g.n + kWideCols - 1) / kWideCols,
+                        (g.m + kWideRows - 1) / kWideRows, streams);
+        gemm_kernel<kWideMode, kWide>
+            <<<grid, kWideThreads, kWideSmem, stream>>>(g);
+        ARUCO_LAUNCH_CHECK();
+        if (kMode == kSymPair) {
+            gemm_kernel<kFold, kNarrow><<<pairs, kGemmThreads, 0, stream>>>(g);
+            ARUCO_LAUNCH_CHECK();
+        }
+        return 0;
+    }
     const int tm = (g.m + kTile - 1) / kTile;
-    const dim3 grid = kMode == kSymPair ? dim3(tn * (tn + 1) / 2, 1, streams)
-                                        : dim3(tn, tm, streams);
-    gemm_kernel<kMode><<<grid, kGemmThreads, 0, stream>>>(g);
+    const dim3 grid = kMode == kSymPair ? pairs : dim3(tn, tm, streams);
+    gemm_kernel<kMode, kNarrow><<<grid, kGemmThreads, 0, stream>>>(g);
     ARUCO_LAUNCH_CHECK();
     return 0;
 }
@@ -974,9 +1364,18 @@ extern "C" int mekf_update_form(int m) {
     return m <= kColsMaxM ? kColumns : m <= kNsMaxM ? kRows : kBlock;
 }
 
+// The GEMM tiling the entry point takes for a launch of m x n outputs
+// on `streams` streams when none is forced (`gemm_tiling`): 1 the 32x32
+// tiling, 2 the wide one.
+extern "C" int mekf_update_gemm_tile(int m, int n, int streams) {
+    return gemm_tiling(m, n, streams);
+}
+
 // S streams packed along a leading axis: cov (S, n, n), h (S, m, n),
 // r (S, m), resid (S, m) -> inn (S, n), cov_out (S, n, n). form: 0
-// picks by M (`mekf_update_form`), 1-3 force a form that takes M. marks
+// picks by M (`mekf_update_form`), 1-3 force a form that takes M.
+// tiling: 0 picks each GEMM launch's by its shape
+// (`mekf_update_gemm_tile`), 1-2 force one on every launch. marks
 // (may be null): events recorded after PHᵀ, after S⁻¹ (with S, K and
 // inn on the cluster path) and at the end.
 extern "C" int mekf_fused_update_batched(const float* cov, const float* h,
@@ -984,11 +1383,12 @@ extern "C" int mekf_fused_update_batched(const float* cov, const float* h,
                                          float* inn, float* cov_out,
                                          float* scratch, int streams, int n,
                                          int m, int ns_iters, int form,
-                                         cudaEvent_t* marks, int n_marks,
-                                         cudaStream_t stream) {
+                                         int tiling, cudaEvent_t* marks,
+                                         int n_marks, cudaStream_t stream) {
     if (form == kAuto) form = mekf_update_form(m);
     if (n <= 0 || m <= 0 || streams <= 0 || streams > 65535
-        || form < kColumns || form > kBlock || m > form_max_m(form))
+        || form < kColumns || form > kBlock || m > form_max_m(form)
+        || tiling < kTileByShape || tiling > kWide)
         return static_cast<int>(cudaErrorInvalidValue);
     const long long nm = static_cast<long long>(n) * m;
     const long long mm = static_cast<long long>(m) * m;
@@ -1004,7 +1404,7 @@ extern "C" int mekf_fused_update_batched(const float* cov, const float* h,
     int err;
     if ((err = launch_gemm<kStore>(       // P Hᵀ
              gemm1(n, m, n, op(cov, n, 0, nn), op(h, n, 1, nm), pht, m, nm),
-             streams, stream)))
+             streams, tiling, stream)))
         return err;
     aruco_mark(marks, n_marks, 0, stream);
     if (form != kBlock) {
@@ -1016,29 +1416,30 @@ extern "C" int mekf_fused_update_batched(const float* cov, const float* h,
                         mm);
         sg.r = r;
         sg.sr = m;
-        if ((err = launch_gemm<kAddDiag>(sg, streams, stream))) return err;
+        if ((err = launch_gemm<kAddDiag>(sg, streams, tiling, stream)))
+            return err;
         newton_schulz<<<streams, kBlockNsThreads, 0, stream>>>(s, x, t, y, m,
                                                                ns_iters);
         ARUCO_LAUNCH_CHECK();
         if ((err = launch_gemm<kStore>(
                  gemm1(n, m, m, op(pht, m, 0, nm), op(x, m, 0, mm), gain, m,
                        nm),
-                 streams, stream)))
+                 streams, tiling, stream)))
             return err;
         if ((err = launch_gemm<kStore>(
                  gemm1(n, 1, m, op(gain, m, 0, nm), op(resid, 1, 0, m), inn,
                        1, n),
-                 streams, stream)))
+                 streams, tiling, stream)))
             return err;
     }
     aruco_mark(marks, n_marks, 1, stream);
     if ((err = launch_gemm<kEyeMinus>(    // I − K H
              gemm1(n, n, m, op(gain, m, 0, nm), op(h, n, 0, nm), ikh, n, nn),
-             streams, stream)))
+             streams, tiling, stream)))
         return err;
     if ((err = launch_gemm<kStore>(       // (I − K H) P
              gemm1(n, n, n, op(ikh, n, 0, nn), op(cov, n, 0, nn), t1, n, nn),
-             streams, stream)))
+             streams, tiling, stream)))
         return err;
     // sym([(I−KH)P | K diag(r)] [(I−KH) | K]ᵀ)
     Gemm jg = gemm1(n, n, n, op(t1, n, 0, nn), op(ikh, n, 1, nn), cov_out, n,
@@ -1047,7 +1448,8 @@ extern "C" int mekf_fused_update_batched(const float* cov, const float* h,
     jg.depth[1] = m;
     jg.a[1] = op(gain, m, 0, nm, r, m);
     jg.b[1] = op(gain, m, 1, nm);
-    if ((err = launch_gemm<kSymPair>(jg, streams, stream))) return err;
+    if ((err = launch_gemm<kSymPair>(jg, streams, tiling, stream)))
+        return err;
     aruco_mark(marks, n_marks, 2, stream);
     return 0;
 }

@@ -4,9 +4,10 @@ Counterpart of aruco_slam_tpu/filters/pallas_mekf.py `fused_update`:
 PHᵀ; S = HPHᵀ + diag(r); S⁻¹ by Newton–Schulz; K = PHᵀS⁻¹;
 inn = K·resid; P' = sym((I−KH)P(I−KH)ᵀ + K diag(r) Kᵀ). The kernel is
 ``csrc/mekf_update.cu`` (Newton–Schulz in one thread-block cluster per
-stream, every other product in the repo's own register-tiled GEMM, no
-cuBLAS); `fused_update_plain` is the same chain in PyTorch matmuls at
-full f32 and is what a CPU tensor runs.
+stream, every other product in the repo's own register-tiled GEMM, in
+a 32x32 or a wide tiling by the launch's shape, no cuBLAS);
+`fused_update_plain` is the same chain in PyTorch matmuls at full f32
+and is what a CPU tensor runs.
 
 Both take one filter, or S filters (streams) stacked along a leading
 axis: the JAX fleet vmaps its whole filter, Pallas update included, and
@@ -104,17 +105,48 @@ def fused_update_form(cov, h, r_diag, resid, form: str,
     return _launch(cov, h, r_diag, resid, ns_iters, FORMS.index(form) + 1)
 
 
-def split_ms(cov, h, r_diag, resid, ns_iters: int = 20) -> dict:
+# The kernel's GEMM tilings (csrc/mekf_update.cu `gemm_tiling`), one
+# arithmetic, bit-identical outputs: "32x32" (32x32 output tiles, 2x2
+# outputs a thread) and "wide" (128x64 tiles, 8x8 outputs a thread, a
+# cp.async ring), which a launch takes where its outputs, over all its
+# streams, fill half the card's SMs with a wide tile each.
+TILINGS = ("32x32", "wide")
+
+
+def gemm_tiling(m: int, n: int, streams: int = 1) -> str:
+    """The tiling the kernel takes for a GEMM launch of m x n outputs on
+    ``streams`` streams on the current card: ``gemm_tiling(n, n, s)``
+    is that of B3's N x N products (I − KH, (I − KH)P, the Joseph sum),
+    ``gemm_tiling(n, m, s)`` PHᵀ's. Builds the kernels; reads the
+    card's SM count once, no launch."""
+    fn = _build.function("mekf_update_gemm_tile", [ctypes.c_int] * 3)
+    return TILINGS[fn(m, n, streams) - 1]
+
+
+def fused_update_tiling(cov, h, r_diag, resid, tiling: str,
+                        ns_iters: int = 20):
+    """`fused_update` on CUDA tensors with every GEMM launch forced into
+    one of TILINGS, for timing and testing each tiling at shapes the
+    kernel would run in the other; not counted in
+    ``fused_update.launches``."""
+    return _launch(cov, h, r_diag, resid, ns_iters,
+                   tiling=TILINGS.index(tiling) + 1)
+
+
+def split_ms(cov, h, r_diag, resid, ns_iters: int = 20,
+             tiling: str | None = None) -> dict:
     """CUDA-event milliseconds of each launch group of one kernel call on
     CUDA tensors (not counted in ``fused_update.launches``): "pht"
     PHᵀ; "gain" S, its Newton–Schulz inverse, K and the innovation;
-    "joseph" I − KH and the symmetrized Joseph covariance."""
+    "joseph" I − KH and the symmetrized Joseph covariance. ``tiling``
+    (one of TILINGS) forces every GEMM launch's."""
+    forced = 0 if tiling is None else TILINGS.index(tiling) + 1
     return _build.split_ms(lambda marks, n_marks: _launch(
-        cov, h, r_diag, resid, ns_iters, 0, marks, n_marks),
+        cov, h, r_diag, resid, ns_iters, 0, forced, marks, n_marks),
         ["pht", "gain", "joseph"])
 
 
-def _launch(cov, h, r_diag, resid, ns_iters, form=0, marks=None,
+def _launch(cov, h, r_diag, resid, ns_iters, form=0, tiling=0, marks=None,
             n_marks=0, out=None):
     args = [t.contiguous() for t in (cov, h, r_diag, resid)]
     batched = cov.dim() == 3
@@ -142,13 +174,13 @@ def _launch(cov, h, r_diag, resid, ns_iters, form=0, marks=None,
                              f"{tuple(new_cov.shape)} for cov "
                              f"{tuple(cov.shape)}")
     fn = _build.function("mekf_fused_update_batched", [ctypes.c_void_p] * 7
-                         + [ctypes.c_int] * 5 + [ctypes.c_void_p,
+                         + [ctypes.c_int] * 6 + [ctypes.c_void_p,
                                                  ctypes.c_int,
                                                  ctypes.c_void_p])
     with _build.on_device(cov, h, r_diag, resid, inn, new_cov,
                           scratch) as stream:
         _build.call(fn, _build.ptr(cov), _build.ptr(h), _build.ptr(r_diag),
                     _build.ptr(resid), _build.ptr(inn), _build.ptr(new_cov),
-                    _build.ptr(scratch), streams, n, m, ns_iters, form, marks,
-                    n_marks, stream)
+                    _build.ptr(scratch), streams, n, m, ns_iters, form,
+                    tiling, marks, n_marks, stream)
     return inn, new_cov

@@ -204,6 +204,13 @@ def _validate(cfg: MekfConfig) -> bool:
     return can if cfg.update_kernel is None else cfg.update_kernel
 
 
+def update_takes_kernel(cfg: MekfConfig) -> bool:
+    """Whether the update runs the fused kernel (`cuda_mekf.fused_update`
+    on a card) rather than the XLA-form update; raises on a config the
+    filter cannot run."""
+    return _validate(cfg)
+
+
 def init_state(cfg: MekfConfig, cam_t=None, cam_q=None,
                device=None) -> MekfState:
     """Initial state: camera at the given pose, no active landmarks."""

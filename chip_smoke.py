@@ -928,6 +928,76 @@ def _b3_forms(args, want, dev) -> dict:
     return out
 
 
+def _b3_library_ms(args) -> dict:
+    """Full-f32 torch.matmul (no TF32) of the N x N products B3 runs in
+    its GEMM: KH, (I − KH)P and the Joseph sum over the concatenated
+    depth, [(I − KH)P | K diag(r)] [(I − KH) | K]ᵀ (K = PHᵀS⁻¹ and the
+    operands made before the timing); a yardstick for timing only, which
+    the port never calls: ms a call and device ms."""
+    import torch
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("library_ms is full f32: TF32 matmuls are on")
+    cov, h, r, _ = args
+    n, m = cov.shape[-1], h.shape[-2]
+    pht = cov @ h.transpose(-1, -2)
+    k = pht @ torch.linalg.inv(h @ pht + torch.diag_embed(r))
+    eye = torch.eye(n, device=cov.device)
+    ikh = eye - k @ h
+    a = torch.cat([ikh @ cov, k * r[..., None, :]], -1)
+    b = torch.cat([ikh, k], -1).transpose(-1, -2)
+
+    def products():
+        torch.matmul(k, h)
+        torch.matmul(ikh, cov)
+        torch.matmul(a, b)
+    return {"library_ms": call_ms(products),
+            "library_device_ms": device_ms(products)}
+
+
+def _b3_tilings(args, dev, library: bool = False) -> dict:
+    """B3 with every GEMM launch forced into each tiling, on the same
+    inputs: the innovation and P' of the two equal (torch.equal, else an
+    error), each tiling's ms a call, device ms and the split's "joseph"
+    group (I − KH, (I − KH)P and the Joseph sum); "taken" the tiling the
+    C entry point takes for the N x N products at this shape, "pht" for
+    PHᵀ; with ``library`` the three products in torch.matmul beside."""
+    import torch
+    from aruco_slam_tpu_torch.filters import cuda_mekf
+    if dev.type != "cuda":
+        return {}
+    s = args[0].shape[0] if args[0].dim() == 3 else 1
+    n, m = args[0].shape[-1], args[1].shape[-2]
+    out = {"taken": cuda_mekf.gemm_tiling(n, n, s),
+           "pht": cuda_mekf.gemm_tiling(n, m, s)}
+    got = {}
+    for tiling in cuda_mekf.TILINGS:
+        def run(tiling=tiling):
+            return cuda_mekf.fused_update_tiling(*args, tiling)
+        got[tiling] = run()
+        split = split_median(lambda tiling=tiling: cuda_mekf.split_ms(
+            *args, tiling=tiling))
+        out[tiling] = {"ms": call_ms(run), "device_ms": device_ms(run),
+                       "joseph_ms": split["joseph"], "pht_ms": split["pht"]}
+    a, b = (got[t] for t in cuda_mekf.TILINGS)
+    if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+        raise AssertionError(f"B3's tilings differ at S={s} N={n} M={m}")
+    if library:
+        out.update(_b3_library_ms(args))
+    return out
+
+
+def _fmt_tilings(t: dict) -> str:
+    if not t:
+        return "tilings not measured"
+    parts = [f"{k} {t[k]['ms']:.3f} / {t[k]['device_ms']:.3f} (joseph "
+             f"{t[k]['joseph_ms']:.4f})" for k in ("32x32", "wide")]
+    if "library_ms" in t:
+        parts.append(f"library {t['library_ms']:.3f} / "
+                     f"{t['library_device_ms']:.3f}")
+    return (f"N x N products take {t['taken']}, PHᵀ {t['pht']}; tilings "
+            f"(ms a call / device) " + ", ".join(parts))
+
+
 def _b3(captured, captured_rot, captured_rot32, dev):
     import numpy as np
     import torch
@@ -956,6 +1026,7 @@ def _b3(captured, captured_rot, captured_rot32, dev):
         b_ms, b_by = _b3_bound(1, n_, m_)
         split = _b3_split(args, dev)
         forms = _b3_forms(args, want, dev)
+        tilings = _b3_tilings(args, dev)
         # one Newton–Schulz step: the device time at 20 steps less that
         # at 0
         step_us = (t["device_ms"] - device_ms(lambda: cuda_mekf.fused_update(
@@ -966,14 +1037,15 @@ def _b3(captured, captured_rot, captured_rot32, dev):
             f"Newton–Schulz step {step_us:.2f} us device; bound {b_ms:.4f} "
             f"ms ({b_by}); split {_fmt(split)}; forms (ms a call / device) "
             + ", ".join(f"{f} {v['ms']:.3f} / {v['device_ms']:.3f}"
-                        for f, v in forms.items()))
+                        for f, v in forms.items())
+            + f"; {_fmt_tilings(tilings)}")
         if not np.isfinite(err) or err > B3_TOL or not sym:
             raise AssertionError(f"B3 differs from its plain version at "
                                  f"{shape}: {err}, symmetric {sym}")
         shapes.append({"shape": shape, **t, "ns_step_us": step_us,
                        "bound_ms": b_ms, "bound_by": b_by,
                        "split_ms": split, "forms": forms,
-                       "max_abs_err": err})
+                       "tilings": tilings, "max_abs_err": err})
     # the last STREAMS frames of the point-mode run as STREAMS streams in
     # one launch (the batched entry point), against the batched plain
     # chain and against one single-stream launch each
@@ -998,11 +1070,13 @@ def _b3(captured, captured_rot, captured_rot32, dev):
     shape = f"S={STREAMS} N={batch[0].shape[1]} M={batch[1].shape[1]}"
     b_ms, b_by = _b3_bound(STREAMS, batch[0].shape[1], batch[1].shape[1])
     split = _b3_split(batch, dev)
+    tilings = _b3_tilings(batch, dev)
     log(f"[B3] fused_update batched {shape}: max |kernel - plain| "
         f"{err:.3e} (tol {B3_TOL}); max |batched - single launches| "
         f"{vs_single:.3e} (bit-equal expected); {_fmt_t(t)}, {STREAMS} "
         f"single launches {singles_ms:.3f} ms a call ({singles_dev:.3f} "
-        f"device), bound {b_ms:.4f} ms ({b_by}); split {_fmt(split)}")
+        f"device), bound {b_ms:.4f} ms ({b_by}); split {_fmt(split)}; "
+        f"{_fmt_tilings(tilings)}")
     # (a CPU tensor runs the plain chain, whose batched matmuls sum in
     # another order than single ones: only the kernel is bit-equal)
     exact = dev.type == "cuda"
@@ -1014,7 +1088,8 @@ def _b3(captured, captured_rot, captured_rot32, dev):
                    **t, "single_launches_ms": singles_ms,
                    "single_launches_device_ms": singles_dev,
                    "max_abs_err": err, "max_abs_err_vs_single": vs_single,
-                   "bound_ms": b_ms, "bound_by": b_by, "split_ms": split})
+                   "bound_ms": b_ms, "bound_by": b_by, "split_ms": split,
+                   "tilings": tilings})
     main = shapes[0]
     return {"name": "fused_update", "route": "cuda",
             "source": "aruco_slam_tpu_torch/csrc/mekf_update.cu",
@@ -3425,12 +3500,16 @@ def _b3_bench_shapes(dev, smi: str) -> list:
         form = cuda_mekf.newton_schulz_form(m) if dev.type == "cuda" \
             else None
         faster = "kernel" if t["device_ms"] < x_dev else "XLA-form chain"
+        # the survey's shape carries the library's time of the N x N
+        # products beside the two tilings'
+        tilings = _b3_tilings(args, dev, library=not batched)
         log(f"[B3] fused_update {shape} (bench): max |kernel - plain| "
             f"{err:.3e} (tol {B3_TOL}); symmetric {sym}; {_fmt_t(t)}; the "
             f"XLA-form update its driver runs (s_solver ns, "
             f"{cfg.matmul_precision}) {x_ms:.3f} ms a call ({x_dev:.3f} "
             f"device), {x_err:.3e} from the plain chain; {faster} faster "
-            f"on device; {form} form; bound {b_ms:.4f} ms ({b_by}) on {smi}")
+            f"on device; {form} form; bound {b_ms:.4f} ms ({b_by}) on "
+            f"{smi}; {_fmt_tilings(tilings)}")
         if not np.isfinite(err) or err > B3_TOL or not sym:
             raise AssertionError(f"B3 differs from its plain version at "
                                  f"{shape}: {err}, symmetric {sym}")
@@ -3438,7 +3517,7 @@ def _b3_bench_shapes(dev, smi: str) -> list:
                        "xla_form_ms": x_ms, "xla_form_device_ms": x_dev,
                        "xla_form_precision": cfg.matmul_precision,
                        "bound_ms": b_ms, "bound_by": b_by,
-                       "max_abs_err": err})
+                       "tilings": tilings, "max_abs_err": err})
     return shapes
 
 

@@ -2,7 +2,9 @@
 count of the fused update's rows, ``filter.update_rows`` and
 ``filter.update_row_slots``, and of the map's slots,
 ``filter.map_slots_used`` and ``filter.map_slots``, against a hand
-count from the accepted observations it returns, on the CPU (point and
+count from the accepted observations it returns, and of the frames
+whose update took the wide GEMM tiling, ``filter.b3_wide_frames`` (none
+where the update is not the kernel's), on the CPU (point and
 rotation landmarks, a chunked scan, the viewers' per-frame loop and a
 two-stream fleet); its count of the markers PnP solved,
 ``front_end.pnp_markers``, on every front end, with no launch of the
@@ -24,6 +26,7 @@ from aruco_slam_tpu_torch.utils import profiling
 
 ROWS, SLOTS = "filter.update_rows", "filter.update_row_slots"
 USED, MAP = "filter.map_slots_used", "filter.map_slots"
+WIDE = "filter.b3_wide_frames"
 PNP = "front_end.pnp_markers"
 # the 1080p camera at half scale, for 960x540 frames
 HALF_K = np.array([[707.45, 0.0, 483.5], [0.0, 707.45, 272.15],
@@ -79,11 +82,14 @@ def map_count(masks, filled=None):
     return used, slots
 
 
-def counted(rows_slots, masks, pnp=None):
+def counted(rows_slots, masks, pnp=None, wide=0):
     """The counters a MEKF request should hold: the update's rows, the
-    map's slots from ``masks`` and, where given, the PnP markers."""
+    map's slots from ``masks``, the frames its update ran in the wide
+    tiling (none on the CPU and at these shapes) and, where given, the
+    PnP markers."""
     want = dict(zip((ROWS, SLOTS), rows_slots))
     want.update(zip((USED, MAP), map_count(masks)))
+    want[WIDE] = wide
     if pnp is not None:
         want[PNP] = pnp
     return want

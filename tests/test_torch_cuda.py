@@ -397,6 +397,64 @@ def test_fused_update_rotation_size(device):
     assert torch.equal(pn, pn.T)
 
 
+@pytest.mark.parametrize("streams,n,m", [
+    (None, 1545, 144), (None, 777, 48), (None, 777, 144), (None, 1000, 48),
+    (None, 1000, 144), (2, 1545, 144), (2, 1000, 48), (None, 300, 264)])
+def test_gemm_tilings_bit_identical(device, streams, n, m):
+    """Every GEMM launch forced into each tiling: the innovation and P'
+    of the wide tiling equal the 32x32 tiling's (torch.equal), P' is
+    exactly symmetric, both within 1e-4 relative of the plain version;
+    the survey's shape, ragged N, two streams, and the block form (M >
+    256: S + diag(r), K and inn in the GEMM too)."""
+    args = _update_inputs(np.random.default_rng(n + m), device, n, m,
+                          streams)
+    narrow = cuda_mekf.fused_update_tiling(*args, "32x32")
+    wide = cuda_mekf.fused_update_tiling(*args, "wide")
+    assert torch.equal(wide[0], narrow[0]) and torch.equal(wide[1],
+                                                           narrow[1])
+    assert torch.equal(wide[1], wide[1].transpose(-1, -2))
+    inn_p, pn_p = cuda_mekf.fused_update_plain(*args)
+    assert _rel_err(wide[0], inn_p) <= 1e-4 and _rel_err(wide[1],
+                                                         pn_p) <= 1e-4
+    assert torch.equal(cuda_mekf.fused_update(*args)[1], wide[1])
+
+
+@pytest.mark.parametrize("n,m,joseph", [
+    (1545, 144, "wide"), (201, 48, "32x32"), (393, 112, "32x32")])
+def test_gemm_tiling_rule(device, n, m, joseph):
+    """The tiling of B3's N x N products at the survey's, the point
+    filter's and the rotation filter's shapes on one stream (PHᵀ, N x
+    M, takes the 32x32 one at each), and the split's "joseph" group
+    under each tiling forced."""
+    assert cuda_mekf.gemm_tiling(n, n) == joseph
+    assert cuda_mekf.gemm_tiling(n, m) == "32x32"
+    args = _update_inputs(np.random.default_rng(m), device, n, m)
+    for tiling in cuda_mekf.TILINGS:
+        split = cuda_mekf.split_ms(*args, tiling=tiling)
+        assert set(split) == {"pht", "gain", "joseph"}
+        assert split["joseph"] > 0
+
+
+@pytest.mark.parametrize("capacity,max_obs,wide", [(512, 48, True),
+                                                   (64, 16, False)])
+def test_run_slam_counts_the_wide_frames(device, tmp_path, capacity, max_obs,
+                                         wide):
+    """``filter.b3_wide_frames`` at the survey's filter shape (N 1545, M
+    144: every frame) and at the point filter's (N 201, M 48: none)."""
+    from aruco_slam_tpu_torch.apps import make_synthetic as tsyn
+    from aruco_slam_tpu_torch.apps import run_slam as trun
+    from aruco_slam_tpu_torch.io import save_npz
+    npz = tmp_path / "poses.npz"
+    poses = tsyn.build(frames=8, markers=12, capacity=capacity)
+    save_npz(npz, **{k: v for k, v in poses.items()
+                     if k not in ("corners", "corner_mask")})
+    res = trun.main(["--input", str(npz), "--platform", "cuda",
+                     "--capacity", str(capacity), "--max-obs", str(max_obs),
+                     "--trajectory", str(tmp_path / "t.txt"),
+                     "--map", str(tmp_path / "m.txt")])
+    assert res.counters["filter.b3_wide_frames"] == (8 if wide else 0)
+
+
 def test_mekf_fleet_step_cuda_matches_cpu(device):
     """Three rotation-mode filters stepping together on the card (one
     update launch per frame) against the same on the CPU (plain
